@@ -1,0 +1,112 @@
+"""Build and load the hand-written CUDA kernels of ``ops/csrc/``.
+
+Each kernel source is compiled at first use with ``nvcc`` into a shared
+library with a plain C interface (no PyTorch headers, so a build takes
+seconds) and loaded with ``ctypes``. The library lands in
+``auromat_tpu_torch/_build/``, named by a hash of the source and the
+compiler flags, so an edited source is rebuilt and an unchanged one is
+loaded as it is. Nothing is built when this module is imported, and a
+failed build raises.
+
+Each :class:`CudaKernel` counts its launches in ``launches``: one per
+successful launch, so a run can show that its path went through the kernel.
+"""
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+
+_CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
+_BUILD = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                      "_build")
+NVCC_DEFAULT = "/usr/local/cuda/bin/nvcc"  # the CUDA toolkit's default install
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC")
+
+
+def find_nvcc():
+    """Path of ``nvcc``: ``$CUDA_HOME/bin``, then ``PATH``, then the
+    toolkit's default install. Raises if there is none."""
+    cands = []
+    if os.environ.get("CUDA_HOME"):
+        cands.append(os.path.join(os.environ["CUDA_HOME"], "bin", "nvcc"))
+    cands += [shutil.which("nvcc"), NVCC_DEFAULT]
+    for c in cands:
+        if c and os.path.isfile(c) and os.access(c, os.X_OK):
+            return c
+    raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH); "
+                       "the CUDA kernels of auromat_tpu_torch are built at "
+                       "first use and need the CUDA toolkit")
+
+
+class CudaKernel:
+    """One ``extern "C"`` launcher in one ``csrc/*.cu`` file.
+
+    :param source: file name under ``csrc/``
+    :param symbol: the C function; it launches on the stream it is given
+        and returns ``cudaGetLastError()`` of the launch
+    :param argtypes: ctypes argument types (``c_void_p`` for every pointer
+        and for the stream)
+    """
+
+    def __init__(self, source, symbol, argtypes):
+        self.source = source
+        self.symbol = symbol
+        self.argtypes = list(argtypes)
+        self.launches = 0
+        self.path = None  # the loaded library, once built
+        self._fn = None
+        self._lock = threading.Lock()
+
+    def build(self):
+        """Compile (if not yet built) and load; returns the library path."""
+        with self._lock:
+            if self._fn is None:
+                path = self._compile()
+                fn = getattr(ctypes.CDLL(path), self.symbol)
+                fn.argtypes = self.argtypes
+                fn.restype = ctypes.c_int
+                self._fn, self.path = fn, path
+            return self.path
+
+    def _lib_path(self):
+        with open(os.path.join(_CSRC, self.source), "rb") as f:
+            digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+        stem = os.path.splitext(self.source)[0]
+        return os.path.join(_BUILD, f"lib{stem}-{digest.hexdigest()[:16]}.so")
+
+    def _compile(self):
+        path = self._lib_path()
+        if os.path.isfile(path):
+            return path
+        nvcc = find_nvcc()
+        os.makedirs(_BUILD, exist_ok=True)
+        tmp = f"{path}.{os.getpid()}.tmp"
+        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, os.path.join(_CSRC, self.source)]
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(f"building {self.source} failed "
+                               f"({' '.join(cmd)}):\n{res.stdout}{res.stderr}")
+        os.replace(tmp, path)  # atomic: a concurrent loader sees all or none
+        return path
+
+    def __call__(self, *args):
+        """Launch; raises if the launch was refused."""
+        if self._fn is None:
+            self.build()
+        rc = self._fn(*args)
+        if rc != 0:
+            raise RuntimeError(f"{self.symbol} launch failed: CUDA error {rc}")
+        self.launches += 1
+
+
+_P = ctypes.c_void_p
+
+# K1 (ops/georegrid.py::bin_rgbelev_from_indices)
+GEOREGRID_BIN = CudaKernel(
+    "georegrid_bin.cu", "georegrid_bin_launch",
+    [_P, _P, _P, _P, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+     _P, _P, _P])

@@ -1,0 +1,221 @@
+"""Fused per-pixel georeferencing: camera -> sky -> Earth in plain torch.
+
+Counterpart of ``auromat_tpu.ops.georef`` for the fused georegrid path:
+
+    pixel grid -> CD matmul -> TAN unproject -> celestial rotation (J2000 dirs)
+    -> ray/ellipsoid intersection at emission altitude -> GEO rotation ->
+    Bowring geodetic -> lat/lon/elevation
+
+Per-frame scalars (WCS solution, camera position, frame matrices) are
+host-computed float64 (:class:`GeorefParams`) and travel to the device as
+a :class:`DynGeorefParams` of 0-d/small tensors in the working dtype. The
+per-pixel chain is elementwise tensor code in the dtype and on the device
+of its inputs; the operation order follows the JAX package so the two
+round alike (XLA-CPU contracts a*b+c into fma where eager torch rounds
+after each op, so the f32 chains agree to a tolerance, not bitwise).
+
+Frame-convention note (parity-relevant): like the reference, the ellipsoid is
+treated as axis-aligned in the GCRS/J2000 frame, and ICRS directions are used
+as GCRS (auromat/mapping/astrometry.py:245-269).
+"""
+
+import math
+from dataclasses import dataclass
+from datetime import datetime
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from auromat_tpu_torch.constants import WGS84_A, WGS84_B
+from auromat_tpu_torch.coordinates.frames import FrameMatrices
+from auromat_tpu_torch.coordinates.wcs import TanWcs
+
+
+@dataclass(frozen=True)
+class GeorefParams:
+    """Static (hashable) per-frame scalar calibration for the georef chain.
+
+    Arrays are stored as nested tuples of Python floats; use :meth:`from_wcs`
+    to build from a parsed WCS header + camera state.
+    """
+
+    width: int
+    height: int
+    cd: tuple  # 2x2
+    px_ref: float
+    py_ref: float
+    rotmat: tuple  # 3x3 native->celestial (ICRS~GCRS)
+    camera_pos: tuple  # (3,) GCRS km
+    altitude: float  # emission altitude km
+    mat_j2000_to_geo: tuple  # 3x3
+    mat_j2000_to_sm: tuple  # 3x3
+
+    @staticmethod
+    def from_wcs(wcs: TanWcs, camera_pos, photo_time: datetime, altitude=110.0,
+                 frame_matrices: FrameMatrices = None):
+        fm = frame_matrices or FrameMatrices(photo_time)
+        t = lambda a: tuple(tuple(float(v) for v in row)
+                            for row in np.asarray(a, dtype=np.float64))
+        return GeorefParams(
+            width=int(wcs.width),
+            height=int(wcs.height),
+            cd=t(wcs.cd),
+            px_ref=float(wcs.px_ref),
+            py_ref=float(wcs.py_ref),
+            rotmat=t(wcs.rotmat),
+            camera_pos=tuple(float(v) for v in np.asarray(camera_pos)),
+            altitude=float(altitude),
+            mat_j2000_to_geo=t(fm.j2000_to_geo),
+            mat_j2000_to_sm=t(fm.j2000_to_sm),
+        )
+
+
+class DynGeorefParams(NamedTuple):
+    """Per-frame calibration as tensors on the compute device.
+
+    Same fields as :class:`GeorefParams` minus the static image shape.
+    """
+
+    cd: torch.Tensor  # (2, 2)
+    px_ref: torch.Tensor  # ()
+    py_ref: torch.Tensor  # ()
+    rotmat: torch.Tensor  # (3, 3)
+    camera_pos: torch.Tensor  # (3,)
+    altitude: torch.Tensor  # ()
+    mat_j2000_to_geo: torch.Tensor  # (3, 3)
+    mat_j2000_to_sm: torch.Tensor  # (3, 3)
+
+    @staticmethod
+    def from_static(p: GeorefParams, device="cpu", dtype=torch.float64):
+        return dyn_params_from_numpy(
+            {f: np.asarray(getattr(p, f), dtype=np.float64)
+             for f in DynGeorefParams._fields}, device, dtype)
+
+    def to(self, device, dtype):
+        return DynGeorefParams(*(v.to(device=device, dtype=dtype)
+                                 for v in self))
+
+
+def dyn_params_from_numpy(fields, device, dtype):
+    """A :class:`DynGeorefParams` from a dict of numpy arrays keyed by field.
+
+    Carries calibration across from the JAX package: pass
+    ``{f: np.asarray(getattr(jax_dyn, f)) for f in DynGeorefParams._fields}``
+    so both packages compute on identical values.
+    """
+    return DynGeorefParams(**{
+        f: torch.as_tensor(np.array(fields[f]), dtype=dtype, device=device)
+        for f in DynGeorefParams._fields})
+
+
+def _pixel_dirs(p, px, py):
+    """TAN unprojection to unit J2000 direction components (fused).
+
+    Trig-free: with u = (180/pi)/R the native-spherical direction is
+        (cos t cos phi, cos t sin phi, sin t)
+      = (-y, x, u) / sqrt(x^2 + y^2 + u^2)
+    since cos(arctan2(x,-y)) = -y/R, sin = x/R, and sin(arctan u') with
+    u' = u/R collapses against R.
+    """
+    cd = p.cd
+    dx = px - (p.px_ref - 1.0)
+    dy = py - (p.py_ref - 1.0)
+    x = cd[0][0] * dx + cd[0][1] * dy
+    y = cd[1][0] * dx + cd[1][1] * dy
+    u = 180.0 / math.pi
+    inv = torch.rsqrt(x * x + y * y + u * u)
+    l_ = -y * inv
+    m_ = x * inv
+    n_ = u * inv
+    rm = p.rotmat
+    vx = rm[0][0] * l_ + rm[0][1] * m_ + rm[0][2] * n_
+    vy = rm[1][0] * l_ + rm[1][1] * m_ + rm[1][2] * n_
+    vz = rm[2][0] * l_ + rm[2][1] * m_ + rm[2][2] * n_
+    return vx, vy, vz
+
+
+def _intersect(p, vx, vy, vz, dtype):
+    """Directed ray/inflated-ellipsoid intersection (origin = camera).
+
+    Rays that miss (or hit behind the camera) give NaN coordinates.
+    """
+    a = WGS84_A + p.altitude
+    b = WGS84_B + p.altitude
+    ox, oy, oz = p.camera_pos[0], p.camera_pos[1], p.camera_pos[2]
+    # a camera inside the inflated ellipsoid takes the far root
+    inside = (ox / a) ** 2 + (oy / a) ** 2 + (oz / b) ** 2 < 1.0
+    # scaled-space quadratic (the reference's formulation,
+    # intersection.py:58-104)
+    inv_a, inv_b = 1.0 / a, 1.0 / b
+    dsx, dsy, dsz = vx * inv_a, vy * inv_a, vz * inv_b
+    osx = (-ox * inv_a).to(dtype)
+    osy = (-oy * inv_a).to(dtype)
+    osz = (-oz * inv_b).to(dtype)
+    b_q = dsx * osx + dsy * osy + dsz * osz
+    a_q = dsx * dsx + dsy * dsy + dsz * dsz
+    c_q = osx * osx + osy * osy + osz * osz
+    root = torch.sqrt(b_q * b_q - c_q * a_q + a_q)
+    d = torch.where(inside, b_q + root, b_q - root)
+    d = torch.where(d < 0, torch.nan, d) / a_q
+    return ox + d * vx, oy + d * vy, oz + d * vz
+
+
+def _bowring(x, y, z, a=WGS84_A, b=WGS84_B):
+    e2 = (a * a - b * b) / (a * a)
+    d = (a * a - b * b) / b
+    p2 = x * x + y * y
+    p = torch.sqrt(p2)
+    r = torch.sqrt(p2 + z * z)
+    tu = b * z * (1.0 + d / r) / (a * p)
+    tu2 = tu * tu
+    cu = 1.0 / torch.sqrt(1.0 + tu2)
+    cu3 = cu * cu * cu
+    su3 = cu3 * tu2 * tu
+    lat = torch.atan((z + d * su3) / (p - e2 * a * cu3))
+    lon = torch.atan2(y, x)
+    return lat, lon
+
+
+def _rot(m, x, y, z):
+    return (
+        m[0][0] * x + m[0][1] * y + m[0][2] * z,
+        m[1][0] * x + m[1][1] * y + m[1][2] * z,
+        m[2][0] * x + m[2][1] * y + m[2][2] * z,
+    )
+
+
+def _latlon_from_j2000(p, ix, iy, iz):
+    gx, gy, gz = _rot(p.mat_j2000_to_geo, ix, iy, iz)
+    lat, lon = _bowring(gx, gy, gz)
+    return torch.rad2deg(lat), torch.rad2deg(lon)
+
+
+def _elevation_deg(vx, vy, vz, ix, iy, iz):
+    """90 deg minus angle(-ray, unit(intersection)).
+
+    Reference: auromat/mapping/astrometry.py:200-212 — the ray direction
+    is used as-is.
+    """
+    ilen = torch.sqrt(ix * ix + iy * iy + iz * iz)
+    dot = -(vx * ix + vy * iy + vz * iz) / ilen
+    alpha = torch.arccos(torch.clip(dot, -1.0, 1.0))
+    return 90.0 - torch.rad2deg(alpha)
+
+
+def georef_latlon_dyn(p: DynGeorefParams, px, py, dtype=torch.float32,
+                      with_elevation=False):
+    """Georeference pixel coords (0-based pixel centres) with per-frame params.
+
+    ``p``, ``px`` and ``py`` share one device and the dtype ``dtype``.
+
+    :returns: dict with lat, lon (+ elevation when requested), degrees,
+        NaN where the ray misses the inflated ellipsoid
+    """
+    vx, vy, vz = _pixel_dirs(p, px, py)
+    ix, iy, iz = _intersect(p, vx, vy, vz, dtype)
+    lat, lon = _latlon_from_j2000(p, ix, iy, iz)
+    out = {"lat": lat, "lon": lon}
+    if with_elevation:
+        out["elevation"] = _elevation_deg(vx, vy, vz, ix, iy, iz)
+    return out

@@ -1,0 +1,215 @@
+"""Fused georeference + regrid: the single-frame production path.
+
+Counterpart of ``auromat_tpu.ops.georegrid``. One call runs the full
+pipeline forward (pixel grid -> TAN unproject -> ray/ellipsoid
+intersection -> GEO rotation -> Bowring lat/lon + elevation -> fixed-grid
+bin indices -> mean binning) for one frame:
+
+- the georeference chain (:mod:`auromat_tpu_torch.ops.georef`) and the bin
+  indices (:func:`auromat_tpu_torch.ops.regrid.bin_indices`) are plain
+  elementwise tensor code;
+- the binning is K1, a CUDA kernel written by hand
+  (``csrc/georegrid_bin.cu``), with its plain PyTorch version
+  (:func:`bin_rgbelev_plain`) beside it in this module.
+
+The whole (count, 4 sums) accumulator of a grid lives in device memory at
+once (24 bytes a cell: ~0.6 GB even for the 0.05 deg global grid), so the
+TPU package's VMEM workarounds — lat slabs, tile bounds, tile shapes —
+have no counterpart here.
+
+Reference: auromat/mapping/astrometry.py:49-212 + auromat/resample.py:
+328-351 (the lazy-property pyramid + histogram2d rebin, fused).
+"""
+
+import ctypes
+
+import torch
+
+from auromat_tpu_torch.ops._kernels import GEOREGRID_BIN
+from auromat_tpu_torch.ops.georef import DynGeorefParams, georef_latlon_dyn
+from auromat_tpu_torch.ops.regrid import GridSpec, bin_indices, finalize_mean
+
+ELEV_OFFSET = 90.0  # elevation + 90 >= 0: the fixed-point sums are unsigned
+ELEV_SCALE = 2.0 ** 30  # fixed-point scale of the elevation sums
+
+
+def _check_inputs(grid, iy, ix, img_chw, elev):
+    h, w = iy.shape
+    want = {"iy": (iy, torch.int32, (h, w)), "ix": (ix, torch.int32, (h, w)),
+            "img_chw": (img_chw, torch.float32, (3, h, w)),
+            "elev": (elev, torch.float32, (h, w))}
+    for name, (t, dtype, shape) in want.items():
+        if t.dtype != dtype or tuple(t.shape) != shape:
+            raise ValueError(f"{name}: want {dtype} {shape}, got "
+                             f"{t.dtype} {tuple(t.shape)}")
+        if t.device != iy.device:
+            raise ValueError(f"{name} is on {t.device}, iy on {iy.device}")
+    if h * w * 255 >= 2 ** 32:
+        raise ValueError(f"{h}x{w} samples could overflow the uint32 sums")
+    if grid.n_lat * grid.n_lon >= 2 ** 31:
+        raise ValueError("grid too large for int32 cell indices")
+
+
+def _finish(grid, cnt_rgb, elev_fixed):
+    """Integer sums -> f32 (count (n_lat, n_lon), sums (n_lat, n_lon, 4)).
+
+    :param cnt_rgb: (n_cells, 4) int64 [count, R, G, B]
+    :param elev_fixed: (n_cells,) int64 sum of round((elev + 90) * 2^30)
+    """
+    count = cnt_rgb[:, 0]
+    el = elev_fixed.double() * (1.0 / ELEV_SCALE) - ELEV_OFFSET * count.double()
+    sums = torch.cat([cnt_rgb[:, 1:].float(), el.float()[:, None]], dim=1)
+    return (count.float().reshape(grid.n_lat, grid.n_lon),
+            sums.reshape(grid.n_lat, grid.n_lon, 4))
+
+
+def bin_rgbelev_plain(grid: GridSpec, iy, ix, img_chw, elev):
+    """Plain PyTorch version of K1 with the kernel's arithmetic contract:
+    count and R/G/B as exact integer sums, elevation as a fixed-point
+    integer sum at scale 2^30 (``index_add_`` of int64). Bit-equal to the
+    kernel on all five outputs. Arguments and result as
+    :func:`bin_rgbelev_from_indices`.
+    """
+    _check_inputs(grid, iy, ix, img_chw, elev)
+    n_cells = grid.n_lat * grid.n_lon
+    valid = ((iy >= 0) & (iy < grid.n_lat) & (ix >= 0) & (ix < grid.n_lon))
+    cell = (iy.long() * grid.n_lon + ix.long())[valid]
+    img = img_chw[:, valid]
+    img = torch.where(img == img, img, 0.0)
+    e = elev[valid]
+    e = torch.where(e == e, e, 0.0)
+    vals = torch.cat([torch.ones_like(cell)[None], img.long()], dim=0).T
+    cnt_rgb = torch.zeros(n_cells, 4, dtype=torch.int64, device=iy.device)
+    cnt_rgb.index_add_(0, cell, vals)
+    q = torch.round((e.double() + ELEV_OFFSET) * ELEV_SCALE).long()
+    elev_fixed = torch.zeros(n_cells, dtype=torch.int64, device=iy.device)
+    elev_fixed.index_add_(0, cell, q)
+    return _finish(grid, cnt_rgb, elev_fixed)
+
+
+def launch_k1(grid, iy, ix, img_chw, elev, acc, elev_acc):
+    """Launch K1 on the current stream, adding into ``acc`` ((n_cells, 4)
+    int32 holding uint32 [count, R, G, B]) and ``elev_acc`` ((n_cells,)
+    int64 fixed-point elevation). Shapes and dtypes are validated by the
+    caller (:func:`_check_inputs`)."""
+    for name, t in (("iy", iy), ("ix", ix), ("img_chw", img_chw),
+                    ("elev", elev)):
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous for the K1 kernel")
+    ptr = lambda t: ctypes.c_void_p(t.data_ptr())
+    with torch.cuda.device(iy.device):  # the launcher reads the current device
+        GEOREGRID_BIN(ptr(iy), ptr(ix), ptr(img_chw), ptr(elev), iy.numel(),
+                      grid.n_lat, grid.n_lon, ptr(acc), ptr(elev_acc),
+                      ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+
+
+def _bin_rgbelev_cuda(grid, iy, ix, img_chw, elev):
+    n_cells = grid.n_lat * grid.n_lon
+    acc = torch.zeros(n_cells, 4, dtype=torch.int32, device=iy.device)
+    elev_acc = torch.zeros(n_cells, dtype=torch.int64, device=iy.device)
+    launch_k1(grid, iy, ix, img_chw, elev, acc, elev_acc)
+    # the int32 words hold uint32 sums: reinterpret before widening
+    return _finish(grid, acc.long() & 0xFFFFFFFF, elev_acc)
+
+
+def bin_rgbelev_from_indices(grid: GridSpec, iy, ix, img_chw, elev,
+                             compute="bf16"):
+    """Bin (count, R, G, B, elevation) from precomputed bin indices (K1).
+
+    CUDA tensors go to the K1 kernel; CPU tensors to its plain version,
+    :func:`bin_rgbelev_plain`. Any other device raises.
+
+    :param iy, ix: (h, w) int32 grid row/col per sample; -1 = invalid
+        (samples outside the grid contribute nothing either)
+    :param img_chw: (3, h, w) float32, integer-valued 0..255 ('uint8' contract)
+    :param elev: (h, w) float32 elevation in degrees; NaN (at valid coords)
+        contributes 0
+    :param compute: 'bf16', the JAX package's name for K1's default mode;
+        'i8' (K1-i8) is not ported yet
+    :returns: count (n_lat, n_lon), sums (n_lat, n_lon, 4) [R, G, B, elev],
+        float32. Count and R/G/B are exact; each elevation sum is within
+        2^-31 per sample of the exact sum, then rounded once to float32.
+    """
+    if compute == "i8":
+        raise NotImplementedError("compute='i8' (K1-i8) is not ported yet")
+    if compute != "bf16":
+        raise ValueError(f"unknown compute mode {compute!r}")
+    if iy.device.type == "cuda":
+        _check_inputs(grid, iy, ix, img_chw, elev)
+        return _bin_rgbelev_cuda(grid, iy, ix, img_chw, elev)
+    if iy.device.type == "cpu":
+        return bin_rgbelev_plain(grid, iy, ix, img_chw, elev)
+    raise ValueError(f"K1 runs on cuda (kernel) or cpu (plain); got {iy.device}")
+
+
+def split_bin_indices(grid, flat, valid):
+    """(flat, valid) from bin_indices -> (iy, ix) int32 with the kernel's
+    -1 = invalid-sample sentinel (the bin_rgbelev_from_indices contract —
+    change it HERE, not at the call sites)."""
+    iy = torch.where(valid, flat // grid.n_lon, -1).to(torch.int32)
+    ix = torch.where(valid, flat % grid.n_lon, -1).to(torch.int32)
+    return iy, ix
+
+
+def bin_mean_rgbelev(grid: GridSpec, lats, lons, data):
+    """Mean-bin (R, G, B, elevation) samples with K1.
+
+    NaN coordinates are invalid samples; NaN DATA at a valid coordinate
+    contributes 0 rather than tainting the bin.
+
+    :param lats, lons: (h, w) sample coordinates, degrees
+    :param data: (h, w, 4) — integer-valued 0..255 RGB + elevation (deg)
+    :returns: (count (n_lat, n_lon), means (n_lat, n_lon, 4))
+    """
+    flat, valid = bin_indices(grid, lats, lons)
+    iy, ix = split_bin_indices(grid, flat, valid)
+    data = data.to(torch.float32)
+    img_chw = data[..., :3].permute(2, 0, 1).contiguous()
+    count, sums = bin_rgbelev_from_indices(grid, iy, ix, img_chw,
+                                           data[..., 3].contiguous())
+    return count, finalize_mean(count, sums)
+
+
+def georegrid_inputs(grid: GridSpec, dyn: DynGeorefParams, h, w, mask=None):
+    """The georeference half of :func:`georegrid_partial`: per-pixel
+    (iy, ix) bin indices and the georef outputs (lat, lon, elevation) of
+    an (h, w) frame, in float32 on ``dyn``'s device.
+
+    :param mask: optional (h, w) bool, True = exclude pixel
+    """
+    dev = dyn.cd.device
+    f32 = torch.float32
+    px = torch.arange(w, dtype=f32, device=dev)[None, :].expand(h, w)
+    py = torch.arange(h, dtype=f32, device=dev)[:, None].expand(h, w)
+    out = georef_latlon_dyn(dyn, px, py, dtype=f32, with_elevation=True)
+    flat, valid = bin_indices(grid, out["lat"], out["lon"])
+    if mask is not None:
+        valid &= ~mask
+    iy, ix = split_bin_indices(grid, flat, valid)
+    return iy, ix, out
+
+
+def georegrid_partial(grid: GridSpec, dyn: DynGeorefParams, img_chw,
+                      mask=None):
+    """Fused georef + mean-regrid partial: (count, sums) for one frame.
+
+    :param grid: fixed plate-carree target grid
+    :param dyn: per-frame calibration (DynGeorefParams, float32, on the
+        compute device)
+    :param img_chw: (3, h, w) image on the same device, channels first,
+        integer-valued 0..255
+    :param mask: optional (h, w) bool, True = exclude pixel
+    :returns: count (n_lat, n_lon) and sums (n_lat, n_lon, 4) over
+        channels (R, G, B, elevation)
+    """
+    _, h, w = img_chw.shape
+    iy, ix, out = georegrid_inputs(grid, dyn, h, w, mask)
+    return bin_rgbelev_from_indices(grid, iy, ix,
+                                    img_chw.to(torch.float32).contiguous(),
+                                    out["elevation"].contiguous())
+
+
+def georegrid_mean(grid: GridSpec, dyn: DynGeorefParams, img_chw, mask=None):
+    """Fused georef + mean regrid: (count, means); NaN where empty."""
+    count, sums = georegrid_partial(grid, dyn, img_chw, mask)
+    return count, finalize_mean(count, sums)
