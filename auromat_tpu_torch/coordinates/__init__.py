@@ -1,2 +1,2 @@
-"""Coordinate-system host code (per-frame float64 scalars/3x3 matrices):
-frames, igrf, and the WCS header parse."""
+"""Coordinate-system code: frames, igrf, the WCS header parse (host
+float64), geodesics (host numpy) and coordinate transforms (torch)."""

@@ -1,0 +1,74 @@
+"""Coordinate conversions as torch tensor code (counterpart of
+``auromat_tpu.coordinates.transform``): the geodetic <-> ECEF pair and
+the rigid pole rotation that resampling uses to move a footprint off a
+pole. Each function computes in the dtype and on the device of its
+inputs; the callers pass float64.
+"""
+
+import numpy as np
+import torch
+
+from auromat_tpu_torch.constants import WGS84_A, WGS84_B
+
+
+def geodetic_to_ecef(lat, lon, h, a=WGS84_A, b=WGS84_B):
+    """Geodetic (radians, height in the unit of a/b) -> ECEF cartesian.
+
+    Reference: auromat/coordinates/transform.py:156-178.
+    """
+    e2 = (a * a - b * b) / (a * a)
+    sin_lat = torch.sin(lat)
+    n = a / torch.sqrt(1.0 - e2 * sin_lat * sin_lat)
+    cos_lat = torch.cos(lat)
+    nh = (n + h) * cos_lat
+    x = nh * torch.cos(lon)
+    y = nh * torch.sin(lon)
+    z = (n * (1.0 - e2) + h) * sin_lat
+    return x, y, z
+
+
+def ecef_to_geodetic(x, y, z, a=WGS84_A, b=WGS84_B):
+    """ECEF -> geodetic (lat, lon) in radians via Bowring's 1985 method.
+
+    Reference: auromat/coordinates/transform.py:199-230. Exactly on the
+    rotation axis (x == y == 0) the method divides 0/0 and returns NaN lat,
+    as the reference does.
+    """
+    e2 = (a * a - b * b) / (a * a)
+    d = (a * a - b * b) / b
+    p2 = x * x + y * y
+    p = torch.sqrt(p2)
+    r = torch.sqrt(p2 + z * z)
+    tu = b * z * (1.0 + d / r) / (a * p)
+    tu2 = tu * tu
+    cu = 1.0 / torch.sqrt(1.0 + tu2)
+    cu3 = cu * cu * cu
+    su3 = cu3 * tu2 * tu
+    tp = (z + d * su3) / (p - e2 * a * cu3)
+    return torch.atan(tp), torch.atan2(y, x)
+
+
+def rotate_pole(lats, lons, altitude, angle_deg=90.0, axis=(1, 0, 0),
+                a=WGS84_A, b=WGS84_B):
+    """Rotate geodetic coordinates rigidly around a coordinate axis.
+
+    Used to move data away from a pole before plate-carree gridding
+    (reference: auromat/coordinates/transform.py:301-322).
+
+    :param lats, lons: radians, tensors of any shape
+    :param altitude: km
+    :returns: (lats, lons) in radians
+    """
+    x, y, z = geodetic_to_ecef(lats, lons, altitude, a, b)
+    alpha = np.deg2rad(angle_deg)
+    axis = np.asarray(axis, dtype=np.float64)
+    axis = axis / np.linalg.norm(axis)
+    c, s = np.cos(alpha), np.sin(alpha)
+    ux, uy, uz = axis
+    rot = (c * np.eye(3) + (1 - c) * np.outer(axis, axis)
+           + s * np.array([[0, -uz, uy], [uz, 0, -ux], [-uy, ux, 0]]))
+    m = [[float(v) for v in row] for row in rot]
+    xr = m[0][0] * x + m[0][1] * y + m[0][2] * z
+    yr = m[1][0] * x + m[1][1] * y + m[1][2] * z
+    zr = m[2][0] * x + m[2][1] * y + m[2][2] * z
+    return ecef_to_geodetic(xr, yr, zr, a, b)

@@ -13,7 +13,8 @@ import torch
 
 from auromat_tpu_torch.coordinates.wcs import TanWcs
 from auromat_tpu_torch.io import fits
-from auromat_tpu_torch.ops.georef import DynGeorefParams, GeorefParams
+from auromat_tpu_torch.ops.georef import (DynGeorefParams, GeorefParams,
+                                          compute_device)
 from auromat_tpu_torch.ops.georegrid import georegrid_mean
 from auromat_tpu_torch.ops.regrid import fixed_grid
 
@@ -28,9 +29,7 @@ def frame_setup(device="cuda"):
     (4256x2832, 12.05 MPix); the grid covers the frame at ~100 arcsec per
     cell (36 x 25 cells per degree, 539 x 524 cells).
     """
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("device 'cuda' requested but torch finds no CUDA device")
+    device = compute_device(device)
     header = fits.read_header(FRAME_WCS)
     params = GeorefParams.from_wcs(
         TanWcs(header),

@@ -1,1 +1,1 @@
-"""Host-side file I/O: FITS headers (the subset the fused path needs)."""
+"""Host-side file I/O: FITS headers (the subset the port needs) and images."""

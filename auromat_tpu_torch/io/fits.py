@@ -154,6 +154,11 @@ def get_spacecraft_position(header):
     return (x, header["POSY"], header["POSZ"])
 
 
+def get_norad_id(header):
+    v = header.get("NORADID")
+    return int(v) if v is not None else None
+
+
 def get_shifted_spacecraft_position(header):
     """(x, y, z, shift_seconds) for the time-shift-corrected position, or None.
 

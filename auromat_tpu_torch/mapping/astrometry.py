@@ -1,0 +1,86 @@
+"""Astrometric mappings: build a Mapping from a WCS solution + camera state.
+
+Counterpart of ``auromat_tpu.mapping.astrometry``: one call into the
+georeference chain (:func:`auromat_tpu_torch.ops.georef.georeference`) on
+the requested device, then the results come back to the host as float64
+numpy arrays for the :class:`Mapping`, as in the JAX package. MLat/MLT is
+computed straight from the J2000 intersections, like the reference
+(astrometry.py:170-198).
+
+The JAX package's ``"df64"`` double-float chain exists because TPUs have
+no float64; here ``dtype="df64"`` is native float64 on any device. Only
+TAN headers (every astrometry.net solution) are ported; other
+projections raise (ROADMAP queue 1 item 8).
+"""
+
+from datetime import datetime
+
+import numpy as np
+import numpy.ma as ma
+import torch
+
+from auromat_tpu_torch.coordinates.frames import FrameMatrices
+from auromat_tpu_torch.coordinates.wcs import TanWcs
+from auromat_tpu_torch.mapping.mapping import Mapping
+from auromat_tpu_torch.ops.georef import (GeorefParams, georeference,
+                                          georeference_generic)
+
+
+class AstrometryMapping(Mapping):
+    """Mapping whose MLat/MLT was computed from the J2000 intersections."""
+
+
+def create_mapping(wcs_header, img, camera_pos, photo_time: datetime,
+                   altitude=110.0, identifier=None, metadata=None,
+                   fast_center=True, with_mlatmlt=True, dtype=torch.float64,
+                   frame_matrices=None, device="cpu") -> AstrometryMapping:
+    """Georeference an image with a WCS solution into a Mapping.
+
+    :param wcs_header: FITS header dict (astrometry.net .wcs solution)
+    :param img: (h, w[, C]) uint8/uint16 image matching IMAGEW/IMAGEH
+    :param camera_pos: (3,) GCRS km
+    :param fast_center: centre coords as 4-corner means (reference
+        fastCenterCalculation, astrometry.py:154-160); mask invariants then
+        hold by construction
+    :param dtype: torch dtype of the per-pixel chain (float64 for the
+        reference's precision); ``"df64"`` is float64
+    :param device: where the per-pixel chain runs; the mapping's arrays
+        are host numpy float64 whatever the device
+    """
+    img = np.asarray(img)
+    h, w = img.shape[0], img.shape[1]
+    try:
+        wcs = TanWcs(wcs_header)
+    except ValueError:
+        return georeference_generic(wcs_header)  # raises: not ported yet
+    if (w, h) != (wcs.width, wcs.height):
+        raise ValueError(f"image is {w}x{h}, the WCS solution "
+                         f"{wcs.width}x{wcs.height}")
+    fm = frame_matrices or FrameMatrices(photo_time)
+    params = GeorefParams.from_wcs(wcs, camera_pos, photo_time, altitude, fm)
+    if isinstance(dtype, str):
+        fast_center = False  # the df64 chain computes exact centres
+    out = georeference(params, fast_center=fast_center,
+                       with_mlatmlt=with_mlatmlt, dtype=dtype, device=device)
+    get = lambda k: out[k].to(device="cpu", dtype=torch.float64).numpy()
+    mapping = AstrometryMapping(
+        get("lats"), get("lons"), get("lats_center"), get("lons_center"),
+        get("elevation"), altitude, img, camera_pos, photo_time,
+        identifier, metadata=metadata, sanitized=fast_center,
+        frame_matrices=fm,
+    )
+    mapping.wcs_header = wcs_header
+    if with_mlatmlt:
+        # align the J2000-derived magnetic coords with the (possibly
+        # sanitize-extended) lat/lon masks
+        def masked(key, mask):
+            a = get(key)
+            a[mask] = np.nan
+            return ma.masked_invalid(a, copy=False)
+
+        cm, ccm = mapping.corner_mask, mapping.center_mask
+        mapping._mlatmlt = (masked("mlat", cm), masked("mlt", cm))
+        mapping._mlatmlt_center = (
+            masked("mlat_center", ccm), masked("mlt_center", ccm),
+        )
+    return mapping

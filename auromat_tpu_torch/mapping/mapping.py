@@ -1,0 +1,418 @@
+"""Core data model: a georeferenced image with NaN-masked coordinate grids.
+
+Counterpart of ``auromat_tpu.mapping.mapping``, cut to what
+:func:`auromat_tpu_torch.mapping.astrometry.create_mapping` and
+:func:`auromat_tpu_torch.resample.resample` use. As in the JAX package the
+geometry stays on the host: a :class:`Mapping` holds numpy float64 arrays
+where NaN is the mask, with numpy masked-array views for API familiarity,
+and the mask-consistency invariants (reference mapping.py:295-316) are
+enforced by :func:`sanitize_masks`.
+
+Mask invariants (identical to the reference):
+  - lats[y,x] defined <=> lons[y,x] defined
+  - lats_center[y,x] defined <=> lons_center[y,x] defined
+      <=> img[y,x] defined <=> elevation[y,x] defined
+  - a corner is defined iff at least one adjacent centre is defined
+  - a centre is defined iff all 4 of its corners are defined
+
+Not ported yet: masking (``createMasked``, ``maskedByElevation``,
+``maskedByPolygon``), the geodetic MLat/MLT conversion and
+``convert_mapping_to_sm`` (a mapping from ``create_mapping`` carries the
+MLat/MLT computed from the J2000 intersections), centroid, pixel scales,
+``BoundingBox.center``/``size``, and the providers.
+"""
+
+import numpy as np
+import numpy.ma as ma
+
+from auromat_tpu_torch import utils
+from auromat_tpu_torch.coordinates.frames import FrameMatrices
+from auromat_tpu_torch.coordinates.geodesic import (Location,
+                                                    contains_or_crosses_pole)
+
+
+class BoundingBox:
+    """Geographic bounding box that can span the 180-degree discontinuity.
+
+    Reference: auromat/mapping/mapping.py:44-287.
+    """
+
+    def __init__(self, latSouth, lonWest, latNorth, lonEast):
+        assert -180 <= lonWest <= 180, lonWest
+        assert -180 <= lonEast <= 180, lonEast
+        assert -90 <= latSouth <= 90, latSouth
+        assert -90 <= latNorth <= 90, latNorth
+        self._latSouth = float(latSouth)
+        self._lonWest = float(lonWest)
+        self._latNorth = float(latNorth)
+        self._lonEast = float(lonEast)
+
+    latSouth = property(lambda self: self._latSouth)
+    lonWest = property(lambda self: self._lonWest)
+    latNorth = property(lambda self: self._latNorth)
+    lonEast = property(lambda self: self._lonEast)
+    topLeft = property(lambda self: Location(self._latNorth, self._lonWest))
+    bottomLeft = property(lambda self: Location(self._latSouth, self._lonWest))
+    topRight = property(lambda self: Location(self._latNorth, self._lonEast))
+    bottomRight = property(lambda self: Location(self._latSouth, self._lonEast))
+
+    @property
+    def containsDiscontinuity(self):
+        return self._lonWest > self._lonEast or self.containsPole
+
+    @property
+    def containsPole(self):
+        return (
+            self._lonWest == -180
+            and self._lonEast == 180
+            and (self._latNorth == 90 or self._latSouth == -90)
+        )
+
+    @staticmethod
+    def mergedBoundingBoxes(boxes):
+        boxes = list(boxes)
+        lat_south = min(bb.latSouth for bb in boxes)
+        lat_north = max(bb.latNorth for bb in boxes)
+        lons = [(bb.lonWest, bb.lonEast) for bb in boxes]
+        lon_west, lon_east = BoundingBox._minimum_bbox_lons(lons)
+        return BoundingBox(lat_south, lon_west, lat_north, lon_east)
+
+    @staticmethod
+    def minimumBoundingBox(lat_lons):
+        boxes = [BoundingBox(lat, lon, lat, lon) for lat, lon in lat_lons]
+        return BoundingBox.mergedBoundingBoxes(boxes)
+
+    @staticmethod
+    def _minimum_bbox_lons(lons):
+        """Smallest longitude interval covering all [west, east] intervals,
+        allowing discontinuity wraps (gis.stackexchange.com/a/17987;
+        reference mapping.py:250-275). Each [west, east] pair is directional
+        (the interval runs eastward from west), so its width is
+        (east - west) mod 360."""
+        lons = np.asarray(lons, dtype=np.float64)
+        xs = np.sort(lons.ravel())
+        xs = np.concatenate((xs, [xs[0] + 360]))
+        west = lons[:, 0]
+        span = np.mod(lons[:, 1] - west, 360.0)
+        span = np.where((span == 0) & (lons[:, 1] != west), 360.0, span)
+        unwrapped = np.stack([west, west + span], axis=1)
+        covers = np.zeros(len(xs) - 1, dtype=bool)
+        for i in range(1, len(xs)):
+            for bb in unwrapped:
+                # intervals live on a circle: test the +-360 copies too
+                if any(bb[0] + s <= xs[i - 1] and bb[1] + s >= xs[i]
+                       for s in (-360.0, 0.0, 360.0)):
+                    covers[i - 1] = True
+                    break
+        if covers.all():
+            return -180.0, 180.0
+        gap_lengths = ma.masked_array(xs[1:] - xs[:-1], covers)
+        biggest = int(np.argmax(gap_lengths))
+        lon_west = float(utils.wrap_lon_180(xs[biggest + 1]))
+        lon_east = float(utils.wrap_lon_180(xs[biggest]))
+        return lon_west, lon_east
+
+    def __eq__(self, other):
+        return (
+            isinstance(other, BoundingBox)
+            and self.latNorth == other.latNorth
+            and self.latSouth == other.latSouth
+            and self.lonWest == other.lonWest
+            and self.lonEast == other.lonEast
+        )
+
+    def __repr__(self):
+        return (
+            f"BoundingBox(latSouth={self.latSouth}, lonWest={self.lonWest}, "
+            f"latNorth={self.latNorth}, lonEast={self.lonEast})"
+        )
+
+
+def sanitize_masks(corner_mask, center_mask, after_masking=False):
+    """Make corner/centre masks mutually consistent (True = masked).
+
+    Pure-function equivalent of the reference's in-place fixpoint
+    (auromat/mapping/mapping.py:1063-1125):
+      1. corners with no defined neighbouring centre become masked,
+      2. centres with any masked corner become masked,
+      3. step 1 again for newly masked centres.
+
+    :returns: (corner_mask, center_mask)
+    """
+    corner_mask = np.asarray(corner_mask, dtype=bool).copy()
+    center_mask = np.asarray(center_mask, dtype=bool).copy()
+
+    def corners_without_neighbors(cm):
+        padded = np.ones((cm.shape[0] + 2, cm.shape[1] + 2), dtype=bool)
+        padded[1:-1, 1:-1] = cm
+        return (
+            padded[1:, 1:] & padded[1:, :-1] & padded[:-1, :-1] & padded[:-1, 1:]
+        )
+
+    corner_mask |= corners_without_neighbors(center_mask)
+    if not after_masking:
+        any_corner_missing = (
+            corner_mask[:-1, :-1]
+            | corner_mask[1:, :-1]
+            | corner_mask[1:, 1:]
+            | corner_mask[:-1, 1:]
+        )
+        center_mask |= any_corner_missing
+        corner_mask |= corners_without_neighbors(center_mask)
+    return corner_mask, center_mask
+
+
+class Mapping:
+    """A georeferenced image for a given emission altitude.
+
+    Construct with NaN-masked float arrays (degrees):
+      lats, lons          (h+1, w+1)  pixel-corner coordinates
+      lats_center, ...    (h, w)      pixel-centre coordinates
+      elevation           (h, w)      viewing elevation, 0=horizon 90=nadir
+      img                 (h, w, C)   uint8/uint16 image data
+      camera_pos          (3,)        GCRS km
+      photo_time          datetime
+      altitude            km
+
+    ``sanitized=False`` runs the mask fixpoint on construction.
+    """
+
+    def __init__(self, lats, lons, lats_center, lons_center, elevation, altitude,
+                 img, camera_pos, photo_time, identifier, metadata=None,
+                 sanitized=False, mlat_mlt=None, mlat_mlt_center=None,
+                 frame_matrices=None):
+        img = np.asarray(img)
+        if img.ndim == 2:
+            img = img[:, :, None]
+        h, w = img.shape[0], img.shape[1]
+        lats = self._data(lats)
+        lons = self._data(lons)
+        lats_center = self._data(lats_center)
+        lons_center = self._data(lons_center)
+        elevation = self._data(elevation) if elevation is not None else None
+        assert lats.shape == lons.shape == (h + 1, w + 1), (lats.shape, (h, w))
+        assert lats_center.shape == lons_center.shape == (h, w)
+
+        # masks are stored apart from the data so that masking never
+        # destroys the underlying values (a resampled mapping's coordinate
+        # grids stay regular under the mask)
+        corner_mask = np.isnan(lats) | np.isnan(lons)
+        center_mask = np.isnan(lats_center) | np.isnan(lons_center)
+        if elevation is not None:
+            center_mask |= np.isnan(elevation)
+        if not sanitized:
+            corner_mask, center_mask = sanitize_masks(corner_mask, center_mask)
+        self._corner_mask_arr = corner_mask
+        self._center_mask_arr = center_mask
+
+        self._lats = lats
+        self._lons = lons
+        self._lats_center = lats_center
+        self._lons_center = lons_center
+        self._elevation = elevation
+        self._img = img
+        self._altitude = float(altitude)
+        self._camera_pos = np.asarray(camera_pos, dtype=np.float64)
+        self._photo_time = photo_time
+        self._identifier = identifier
+        self._metadata = metadata or {}
+        self._frame_matrices = frame_matrices
+        self._mlatmlt = mlat_mlt
+        self._mlatmlt_center = mlat_mlt_center
+        self._outlines = None
+        self._bounding_box = None
+
+    @staticmethod
+    def _data(a):
+        if a is None:
+            return None
+        if ma.isMaskedArray(a):
+            return np.asarray(a.filled(np.nan), dtype=np.float64)
+        return np.array(a, dtype=np.float64)
+
+    # ---- core array properties (masked-array views, reference API names)
+
+    @property
+    def corner_mask(self):
+        return self._corner_mask_arr
+
+    @property
+    def center_mask(self):
+        return self._center_mask_arr
+
+    @property
+    def lats(self):
+        return ma.masked_array(self._lats, self._corner_mask_arr, copy=False)
+
+    @property
+    def lons(self):
+        return ma.masked_array(self._lons, self._corner_mask_arr, copy=False)
+
+    @property
+    def latsCenter(self):
+        return ma.masked_array(self._lats_center, self._center_mask_arr, copy=False)
+
+    @property
+    def lonsCenter(self):
+        return ma.masked_array(self._lons_center, self._center_mask_arr, copy=False)
+
+    @property
+    def elevation(self):
+        if self._elevation is None:
+            return None
+        return ma.masked_array(self._elevation, self._center_mask_arr, copy=False)
+
+    @property
+    def img(self):
+        mask = np.repeat(self.center_mask[:, :, None], self._img.shape[2], 2)
+        return ma.masked_array(self._img, mask)
+
+    @property
+    def img_unmasked(self):
+        return self._img
+
+    # ---- scalar metadata
+
+    altitude = property(lambda self: self._altitude)
+    cameraPosGCRS = property(lambda self: self._camera_pos)
+    photoTime = property(lambda self: self._photo_time)
+    identifier = property(lambda self: self._identifier)
+    metadata = property(lambda self: self._metadata)
+
+    @property
+    def frame_matrices(self):
+        if self._frame_matrices is None:
+            self._frame_matrices = FrameMatrices(self._photo_time)
+        return self._frame_matrices
+
+    # ---- magnetic coordinates
+
+    @property
+    def mLatMlt(self):
+        """(mlat, mlt) masked arrays for pixel corners."""
+        if self._mlatmlt is None:
+            raise NotImplementedError(
+                "MLat/MLT from geodetic coordinates is not ported yet; "
+                "create_mapping(with_mlatmlt=True) supplies it")
+        return self._mlatmlt
+
+    @property
+    def mLatMltCenter(self):
+        if self._mlatmlt_center is None:
+            raise NotImplementedError(
+                "MLat/MLT from geodetic coordinates is not ported yet; "
+                "create_mapping(with_mlatmlt=True) supplies it")
+        return self._mlatmlt_center
+
+    # ---- derived geometry
+
+    @property
+    def outline(self):
+        """Full (possibly concave) outline as (n, 2) lat/lon degrees."""
+        return self._full_and_convex_outlines()[0]
+
+    @property
+    def outlineConvexHull(self):
+        return self._full_and_convex_outlines()[1]
+
+    def _full_and_convex_outlines(self):
+        if self._outlines is None:
+            outl = utils.outline(~self.corner_mask)
+            full = np.stack(
+                [self._lats[outl[:, 1], outl[:, 0]], self._lons[outl[:, 1], outl[:, 0]]],
+                axis=-1,
+            )
+            hull = utils.convex_hull(outl)
+            convex = np.stack(
+                [self._lats[hull[:, 1], hull[:, 0]], self._lons[hull[:, 1], hull[:, 0]]],
+                axis=-1,
+            )
+            self._outlines = (full, convex)
+        return self._outlines
+
+    @property
+    def boundingBox(self):
+        """Reference: auromat/mapping/mapping.py:693-743 (degenerate when a
+        pole is contained: spans the full longitude range)."""
+        if self._bounding_box is None:
+            outl = self.outline
+            lat_min, lat_max = float(np.min(outl[:, 0])), float(np.max(outl[:, 0]))
+            lon_min, lon_max = float(np.min(outl[:, 1])), float(np.max(outl[:, 1]))
+
+            hull = self.outlineConvexHull
+            count = len(hull)
+            sample = min(count, 50)
+            idx = np.round(np.linspace(0, count - 1, sample)).astype(int)
+            reduced = hull[idx]
+
+            if contains_or_crosses_pole(reduced):
+                lon_west, lon_east = -180.0, 180.0
+                if lat_max < 0:
+                    lat_south, lat_north = -90.0, lat_max
+                else:
+                    lat_south, lat_north = lat_min, 90.0
+            else:
+                if lon_max - lon_min > 180:
+                    west = outl[:, 1] > 0
+                    lon_west = float(np.min(outl[west, 1]))
+                    lon_east = float(np.max(outl[~west, 1]))
+                else:
+                    lon_west, lon_east = lon_min, lon_max
+                lat_south, lat_north = lat_min, lat_max
+            self._bounding_box = BoundingBox(lat_south, lon_west, lat_north, lon_east)
+        return self._bounding_box
+
+    @property
+    def containsDiscontinuity(self):
+        return self.boundingBox.containsDiscontinuity
+
+    @property
+    def containsPole(self):
+        return self.boundingBox.containsPole
+
+    # ---- conversion/creation
+
+    def createResampled(self, lats, lons, lats_center, lons_center, elevation, img):
+        return Mapping(
+            lats, lons, lats_center, lons_center, elevation, self._altitude, img,
+            self._camera_pos, self._photo_time, self._identifier,
+            metadata=self._metadata, frame_matrices=self._frame_matrices,
+        )
+
+
+GenericMapping = Mapping
+
+
+class MappingCollection:
+    """Mappings for the same instant (e.g. all THEMIS stations).
+
+    Reference: auromat/mapping/mapping.py:1315-1373.
+    """
+
+    def __init__(self, mappings, identifier=None, mayOverlap=True):
+        self._mappings = list(mappings)
+        self._identifier = identifier
+        self._may_overlap = mayOverlap
+
+    identifier = property(lambda self: self._identifier)
+    mappings = property(lambda self: self._mappings)
+    mayOverlap = property(lambda self: self._may_overlap)
+
+    @property
+    def empty(self):
+        return len(self._mappings) == 0
+
+    @property
+    def boundingBox(self):
+        return BoundingBox.mergedBoundingBoxes(m.boundingBox for m in self._mappings)
+
+    @property
+    def photoTime(self):
+        times = sorted(m.photoTime for m in self._mappings)
+        return times[len(times) // 2]
+
+    def __len__(self):
+        return len(self._mappings)
+
+    def __iter__(self):
+        return iter(self._mappings)

@@ -1,2 +1,2 @@
-"""Device compute ops: the fused georeference chain and the K1 binning
-kernel (CUDA C++ sources under ``csrc/``, loaded by ``_kernels``)."""
+"""Device compute ops: the georeference chain, the regrid binning and their
+kernels (CUDA C++ sources under ``csrc/``, loaded by ``_kernels``)."""

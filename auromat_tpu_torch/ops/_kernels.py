@@ -10,6 +10,9 @@ failed build raises.
 
 Each :class:`CudaKernel` counts its launches in ``launches``: one per
 successful launch, so a run can show that its path went through the kernel.
+Two handles may share a source (one library, built once): each entry point
+of the JAX package that reached a TPU kernel has its own handle, and so its
+own count.
 """
 
 import ctypes
@@ -25,6 +28,8 @@ _BUILD = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))
 NVCC_DEFAULT = "/usr/local/cuda/bin/nvcc"  # the CUDA toolkit's default install
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
+_BUILD_LOCKS = {}  # library path -> lock: one build per library
+_BUILD_LOCKS_LOCK = threading.Lock()
 
 
 def find_nvcc():
@@ -80,6 +85,12 @@ class CudaKernel:
 
     def _compile(self):
         path = self._lib_path()
+        with _BUILD_LOCKS_LOCK:
+            lock = _BUILD_LOCKS.setdefault(path, threading.Lock())
+        with lock:
+            return self._compile_locked(path)
+
+    def _compile_locked(self, path):
         if os.path.isfile(path):
             return path
         nvcc = find_nvcc()
@@ -105,8 +116,18 @@ class CudaKernel:
 
 _P = ctypes.c_void_p
 
-# K1 (ops/georegrid.py::bin_rgbelev_from_indices)
-GEOREGRID_BIN = CudaKernel(
-    "georegrid_bin.cu", "georegrid_bin_launch",
-    [_P, _P, _P, _P, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-     _P, _P, _P])
+_K1_ARGS = [_P, _P, _P, _P, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+            _P, _P, _P]
+# K1 and K1-i8 (ops/georegrid.py::bin_rgbelev_from_indices, compute='bf16'
+# and compute='i8'): one source, one kernel template, two entry points
+GEOREGRID_BIN = CudaKernel("georegrid_bin.cu", "georegrid_bin_launch", _K1_ARGS)
+GEOREGRID_BIN_I8 = CudaKernel("georegrid_bin.cu", "georegrid_bin_i8_launch",
+                              _K1_ARGS)
+
+_K2_ARGS = [_P, _P, _P, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, _P, _P]
+# K2 (ops/regrid_pallas.py::bin_partial_pallas_cw and the functions built on
+# it) and K3 (ops/regrid_pallas.py::bin_partial_pallas): one kernel, counted
+# per entry point
+REGRID_BIN = CudaKernel("regrid_bin.cu", "regrid_bin_launch", _K2_ARGS)
+REGRID_BIN_V1 = CudaKernel("regrid_bin.cu", "regrid_bin_launch", _K2_ARGS)

@@ -21,6 +21,15 @@
 // version (ops/georegrid.py::bin_rgbelev_plain), which uses the same
 // arithmetic. The wrapper turns the integer sums into the f32 outputs.
 //
+// K1-i8 (georegrid_bin_i8_launch) replaces the JAX package's
+// compute='i8' variant, ops/georegrid.py::_kernel_i8, which runs the same
+// binning through the TPU's int8 matrix path and carries elevation as
+// floor-quantized base-256 limbs. It is this kernel with one change, a
+// template mode: the elevation term is floor(fl32(e + 90) * 2^16), the add
+// done in float32 and the product floored, not rounded, exactly as
+// _kernel_i8 quantizes (a double add, or a rounding, would move samples by
+// one 2^-16 quantum). Each term is < 180 * 2^16 < 2^24.
+//
 // What bounds it on an H100: the atomics, five per valid sample, where
 // neighbouring pixels share a cell. The 12 MP ISS frame puts 7.03 M
 // samples into 126,585 cells of the 539x524 grid (~56 a cell, ~7 pixels
@@ -35,6 +44,7 @@
 
 namespace {
 
+template <bool kI8>
 __global__ void georegrid_bin_kernel(const int32_t* __restrict__ iy,
                                      const int32_t* __restrict__ ix,
                                      const float* __restrict__ img,
@@ -60,21 +70,23 @@ __global__ void georegrid_bin_kernel(const int32_t* __restrict__ iy,
     atomicAdd(a + 1, (unsigned int)r);
     atomicAdd(a + 2, (unsigned int)g);
     atomicAdd(a + 3, (unsigned int)b);
-    // (e + 90) * 2^30 is exact in double; __double2ll_rn rounds to nearest
-    // even like torch.round
-    const long long q = __double2ll_rn(((double)e + 90.0) * 1073741824.0);
+    long long q;
+    if (kI8) {
+      // float32 add, exact product by 2^16, floor (the _kernel_i8 limbs)
+      q = (long long)floorf(__fmul_rn(__fadd_rn(e, 90.0f), 65536.0f));
+    } else {
+      // (e + 90) * 2^30 is exact in double; __double2ll_rn rounds to
+      // nearest even like torch.round
+      q = __double2ll_rn(((double)e + 90.0) * 1073741824.0);
+    }
     atomicAdd(elev_acc + cell, (unsigned long long)q);
   }
 }
 
-}  // namespace
-
-// Plain C entry point for ctypes. Launches on `stream` and returns the
-// cudaGetLastError() code of the launch (0 = launched).
-extern "C" int georegrid_bin_launch(const void* iy, const void* ix,
-                                    const void* img, const void* elev,
-                                    long long n, int n_lat, int n_lon,
-                                    void* acc, void* elev_acc, void* stream) {
+template <bool kI8>
+int launch(const void* iy, const void* ix, const void* img, const void* elev,
+           long long n, int n_lat, int n_lon, void* acc, void* elev_acc,
+           void* stream) {
   if (n <= 0) return (int)cudaSuccess;
   int device = 0, n_sm = 0;
   cudaGetDevice(&device);
@@ -83,10 +95,31 @@ extern "C" int georegrid_bin_launch(const void* iy, const void* ix,
   long long blocks = (n + threads - 1) / threads;
   const long long max_blocks = (long long)(n_sm > 0 ? n_sm : 1) * 16;
   if (blocks > max_blocks) blocks = max_blocks;
-  georegrid_bin_kernel<<<(unsigned int)blocks, threads, 0,
-                         (cudaStream_t)stream>>>(
+  georegrid_bin_kernel<kI8><<<(unsigned int)blocks, threads, 0,
+                              (cudaStream_t)stream>>>(
       (const int32_t*)iy, (const int32_t*)ix, (const float*)img,
       (const float*)elev, (int64_t)n, (int32_t)n_lat, (int32_t)n_lon,
       (unsigned int*)acc, (unsigned long long*)elev_acc);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// Plain C entry points for ctypes (K1 and K1-i8). Each launches on `stream`
+// and returns the cudaGetLastError() code of the launch (0 = launched).
+extern "C" int georegrid_bin_launch(const void* iy, const void* ix,
+                                    const void* img, const void* elev,
+                                    long long n, int n_lat, int n_lon,
+                                    void* acc, void* elev_acc, void* stream) {
+  return launch<false>(iy, ix, img, elev, n, n_lat, n_lon, acc, elev_acc,
+                       stream);
+}
+
+extern "C" int georegrid_bin_i8_launch(const void* iy, const void* ix,
+                                       const void* img, const void* elev,
+                                       long long n, int n_lat, int n_lon,
+                                       void* acc, void* elev_acc,
+                                       void* stream) {
+  return launch<true>(iy, ix, img, elev, n, n_lat, n_lon, acc, elev_acc,
+                      stream);
 }

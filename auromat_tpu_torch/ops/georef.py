@@ -1,6 +1,8 @@
 """Fused per-pixel georeferencing: camera -> sky -> Earth in plain torch.
 
-Counterpart of ``auromat_tpu.ops.georef`` for the fused georegrid path:
+Counterpart of ``auromat_tpu.ops.georef``: the per-pixel chain of the fused
+georegrid path (:func:`georef_latlon_dyn`) and the full-frame corner +
+centre georeference behind ``create_mapping`` (:func:`georeference`):
 
     pixel grid -> CD matmul -> TAN unproject -> celestial rotation (J2000 dirs)
     -> ray/ellipsoid intersection at emission altitude -> GEO rotation ->
@@ -218,4 +220,94 @@ def georef_latlon_dyn(p: DynGeorefParams, px, py, dtype=torch.float32,
     out = {"lat": lat, "lon": lon}
     if with_elevation:
         out["elevation"] = _elevation_deg(vx, vy, vz, ix, iy, iz)
+    return out
+
+
+def compute_device(device):
+    """``device`` as a torch.device; raises if it is CUDA and torch finds no
+    CUDA device (nothing in the port falls back to the CPU)."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {str(device)!r} requested but torch finds "
+                           "no CUDA device")
+    return device
+
+
+def _compute_dtype(dtype):
+    """The JAX package's ``"df64"`` (its double-float emulation of float64 on
+    TPUs) is native float64 here."""
+    if isinstance(dtype, str):
+        if dtype != "df64":
+            raise ValueError(f"unknown dtype {dtype!r}")
+        return torch.float64
+    return dtype
+
+
+def _grid(width, height, corner, dtype, device):
+    off = -0.5 if corner else 0.0
+    extra = 1 if corner else 0
+    xs = torch.arange(off, off + width + extra, dtype=dtype, device=device)
+    ys = torch.arange(off, off + height + extra, dtype=dtype, device=device)
+    return torch.meshgrid(xs, ys, indexing="xy")
+
+
+def _mlatmlt_from_j2000(p, ix, iy, iz):
+    sx, sy, sz = _rot(p.mat_j2000_to_sm, ix, iy, iz)
+    mlat = torch.rad2deg(torch.atan2(sz, torch.sqrt(sx * sx + sy * sy)))
+    mlt = torch.rad2deg(torch.atan2(sy, sx)) * (24.0 / 360.0) + 12.0
+    return mlat, mlt
+
+
+def georeference(params: GeorefParams, fast_center=False, with_mlatmlt=True,
+                 dtype=torch.float64, device="cpu"):
+    """Fully georeference one frame on ``device``.
+
+    :param fast_center: compute pixel-centre values as the mean of the 4
+        surrounding corner values instead of a second full evaluation
+        (reference astrometry.py:154-160); centres are then NaN wherever
+        any corner is NaN, which pre-satisfies the mask invariants
+    :param dtype: torch dtype of the per-pixel chain; ``"df64"`` is float64
+    :returns: dict of tensors on ``device``: lats, lons (h+1, w+1);
+        lats_center, lons_center, elevation (h, w); and mlat, mlt,
+        mlat_center, mlt_center if requested. NaN where rays miss the
+        inflated ellipsoid.
+    """
+    dtype = _compute_dtype(dtype)
+    p = DynGeorefParams.from_static(params, compute_device(device), dtype)
+    return _georeference_body(p, params.width, params.height, fast_center,
+                              with_mlatmlt, dtype)
+
+
+def georeference_generic(wcs, params=None, fast_center=False,
+                         with_mlatmlt=True, dtype=torch.float64, device="cpu"):
+    """Georeference a frame with a non-TAN projection: not ported yet (the
+    generic WCS projections on device are ROADMAP queue 1 item 8)."""
+    raise NotImplementedError(
+        "georeferencing non-TAN WCS headers is not ported yet (ROADMAP "
+        "queue 1 item 8, generic WCS on device); only TAN headers are")
+
+
+def _georeference_body(p, width, height, fast_center, with_mlatmlt, dtype):
+    dev = p.cd.device
+    px, py = _grid(width, height, True, dtype, dev)
+    vx, vy, vz = _pixel_dirs(p, px, py)
+    ix, iy, iz = _intersect(p, vx, vy, vz, dtype)
+    lats, lons = _latlon_from_j2000(p, ix, iy, iz)
+    out = {"lats": lats, "lons": lons}
+
+    if fast_center:
+        mean4 = lambda a: (a[:-1, :-1] + a[:-1, 1:] + a[1:, 1:] + a[1:, :-1]) * 0.25
+        cvx, cvy, cvz = mean4(vx), mean4(vy), mean4(vz)
+        cix, ciy, ciz = mean4(ix), mean4(iy), mean4(iz)
+    else:
+        cpx, cpy = _grid(width, height, False, dtype, dev)
+        cvx, cvy, cvz = _pixel_dirs(p, cpx, cpy)
+        cix, ciy, ciz = _intersect(p, cvx, cvy, cvz, dtype)
+
+    out["lats_center"], out["lons_center"] = _latlon_from_j2000(p, cix, ciy, ciz)
+    out["elevation"] = _elevation_deg(cvx, cvy, cvz, cix, ciy, ciz)
+    if with_mlatmlt:
+        out["mlat"], out["mlt"] = _mlatmlt_from_j2000(p, ix, iy, iz)
+        out["mlat_center"], out["mlt_center"] = _mlatmlt_from_j2000(
+            p, cix, ciy, ciz)
     return out

@@ -10,7 +10,9 @@ bin indices -> mean binning) for one frame:
   elementwise tensor code;
 - the binning is K1, a CUDA kernel written by hand
   (``csrc/georegrid_bin.cu``), with its plain PyTorch version
-  (:func:`bin_rgbelev_plain`) beside it in this module.
+  (:func:`bin_rgbelev_plain`) beside it in this module. ``compute='i8'``
+  selects K1-i8, the same kernel with the elevation quantization of the
+  JAX package's int8 variant.
 
 The whole (count, 4 sums) accumulator of a grid lives in device memory at
 once (24 bytes a cell: ~0.6 GB even for the 0.05 deg global grid), so the
@@ -25,12 +27,14 @@ import ctypes
 
 import torch
 
-from auromat_tpu_torch.ops._kernels import GEOREGRID_BIN
+from auromat_tpu_torch.ops._kernels import GEOREGRID_BIN, GEOREGRID_BIN_I8
 from auromat_tpu_torch.ops.georef import DynGeorefParams, georef_latlon_dyn
 from auromat_tpu_torch.ops.regrid import GridSpec, bin_indices, finalize_mean
 
 ELEV_OFFSET = 90.0  # elevation + 90 >= 0: the fixed-point sums are unsigned
 ELEV_SCALE = 2.0 ** 30  # fixed-point scale of the elevation sums
+ELEV_SCALE_I8 = 2.0 ** 16  # K1-i8: elevation floor-quantized to 2^-16
+_KERNELS = {"bf16": GEOREGRID_BIN, "i8": GEOREGRID_BIN_I8}
 
 
 def _check_inputs(grid, iy, ix, img_chw, elev):
@@ -50,26 +54,36 @@ def _check_inputs(grid, iy, ix, img_chw, elev):
         raise ValueError("grid too large for int32 cell indices")
 
 
-def _finish(grid, cnt_rgb, elev_fixed):
+def _check_compute(compute):
+    if compute not in _KERNELS:
+        raise ValueError(f"unknown compute mode {compute!r}")
+
+
+def _finish(grid, cnt_rgb, elev_fixed, compute):
     """Integer sums -> f32 (count (n_lat, n_lon), sums (n_lat, n_lon, 4)).
 
     :param cnt_rgb: (n_cells, 4) int64 [count, R, G, B]
-    :param elev_fixed: (n_cells,) int64 sum of round((elev + 90) * 2^30)
+    :param elev_fixed: (n_cells,) int64 sum of the fixed-point elevations
+        (+ 90 deg) at the scale of ``compute``
     """
     count = cnt_rgb[:, 0]
-    el = elev_fixed.double() * (1.0 / ELEV_SCALE) - ELEV_OFFSET * count.double()
+    scale = ELEV_SCALE_I8 if compute == "i8" else ELEV_SCALE
+    el = elev_fixed.double() * (1.0 / scale) - ELEV_OFFSET * count.double()
     sums = torch.cat([cnt_rgb[:, 1:].float(), el.float()[:, None]], dim=1)
     return (count.float().reshape(grid.n_lat, grid.n_lon),
             sums.reshape(grid.n_lat, grid.n_lon, 4))
 
 
-def bin_rgbelev_plain(grid: GridSpec, iy, ix, img_chw, elev):
-    """Plain PyTorch version of K1 with the kernel's arithmetic contract:
-    count and R/G/B as exact integer sums, elevation as a fixed-point
-    integer sum at scale 2^30 (``index_add_`` of int64). Bit-equal to the
-    kernel on all five outputs. Arguments and result as
+def bin_rgbelev_plain(grid: GridSpec, iy, ix, img_chw, elev,
+                      compute="bf16"):
+    """Plain PyTorch version of K1 and K1-i8 with the kernels' arithmetic
+    contract: count and R/G/B as exact integer sums, elevation as a
+    fixed-point integer sum (``index_add_`` of int64): round((e + 90) *
+    2^30) in double for K1, floor(fl32(e + 90) * 2^16) for K1-i8. Bit-equal
+    to the kernel on all five outputs. Arguments and result as
     :func:`bin_rgbelev_from_indices`.
     """
+    _check_compute(compute)
     _check_inputs(grid, iy, ix, img_chw, elev)
     n_cells = grid.n_lat * grid.n_lon
     valid = ((iy >= 0) & (iy < grid.n_lat) & (ix >= 0) & (ix < grid.n_lon))
@@ -81,35 +95,39 @@ def bin_rgbelev_plain(grid: GridSpec, iy, ix, img_chw, elev):
     vals = torch.cat([torch.ones_like(cell)[None], img.long()], dim=0).T
     cnt_rgb = torch.zeros(n_cells, 4, dtype=torch.int64, device=iy.device)
     cnt_rgb.index_add_(0, cell, vals)
-    q = torch.round((e.double() + ELEV_OFFSET) * ELEV_SCALE).long()
+    if compute == "i8":  # the add in float32, then an exact scale and floor
+        q = torch.floor((e + ELEV_OFFSET) * ELEV_SCALE_I8).long()
+    else:
+        q = torch.round((e.double() + ELEV_OFFSET) * ELEV_SCALE).long()
     elev_fixed = torch.zeros(n_cells, dtype=torch.int64, device=iy.device)
     elev_fixed.index_add_(0, cell, q)
-    return _finish(grid, cnt_rgb, elev_fixed)
+    return _finish(grid, cnt_rgb, elev_fixed, compute)
 
 
-def launch_k1(grid, iy, ix, img_chw, elev, acc, elev_acc):
-    """Launch K1 on the current stream, adding into ``acc`` ((n_cells, 4)
-    int32 holding uint32 [count, R, G, B]) and ``elev_acc`` ((n_cells,)
-    int64 fixed-point elevation). Shapes and dtypes are validated by the
-    caller (:func:`_check_inputs`)."""
+def launch_k1(grid, iy, ix, img_chw, elev, acc, elev_acc, compute="bf16"):
+    """Launch K1 (or K1-i8) on the current stream, adding into ``acc``
+    ((n_cells, 4) int32 holding uint32 [count, R, G, B]) and ``elev_acc``
+    ((n_cells,) int64 fixed-point elevation). Shapes and dtypes are
+    validated by the caller (:func:`_check_inputs`)."""
     for name, t in (("iy", iy), ("ix", ix), ("img_chw", img_chw),
                     ("elev", elev)):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous for the K1 kernel")
     ptr = lambda t: ctypes.c_void_p(t.data_ptr())
     with torch.cuda.device(iy.device):  # the launcher reads the current device
-        GEOREGRID_BIN(ptr(iy), ptr(ix), ptr(img_chw), ptr(elev), iy.numel(),
-                      grid.n_lat, grid.n_lon, ptr(acc), ptr(elev_acc),
-                      ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+        _KERNELS[compute](
+            ptr(iy), ptr(ix), ptr(img_chw), ptr(elev), iy.numel(), grid.n_lat,
+            grid.n_lon, ptr(acc), ptr(elev_acc),
+            ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
 
 
-def _bin_rgbelev_cuda(grid, iy, ix, img_chw, elev):
+def _bin_rgbelev_cuda(grid, iy, ix, img_chw, elev, compute):
     n_cells = grid.n_lat * grid.n_lon
     acc = torch.zeros(n_cells, 4, dtype=torch.int32, device=iy.device)
     elev_acc = torch.zeros(n_cells, dtype=torch.int64, device=iy.device)
-    launch_k1(grid, iy, ix, img_chw, elev, acc, elev_acc)
+    launch_k1(grid, iy, ix, img_chw, elev, acc, elev_acc, compute)
     # the int32 words hold uint32 sums: reinterpret before widening
-    return _finish(grid, acc.long() & 0xFFFFFFFF, elev_acc)
+    return _finish(grid, acc.long() & 0xFFFFFFFF, elev_acc, compute)
 
 
 def bin_rgbelev_from_indices(grid: GridSpec, iy, ix, img_chw, elev,
@@ -124,21 +142,20 @@ def bin_rgbelev_from_indices(grid: GridSpec, iy, ix, img_chw, elev,
     :param img_chw: (3, h, w) float32, integer-valued 0..255 ('uint8' contract)
     :param elev: (h, w) float32 elevation in degrees; NaN (at valid coords)
         contributes 0
-    :param compute: 'bf16', the JAX package's name for K1's default mode;
-        'i8' (K1-i8) is not ported yet
+    :param compute: 'bf16' (K1; the JAX package's name for its default
+        mode) or 'i8' (K1-i8: the elevation of each sample floor-quantized
+        to 2^-16 after a float32 add, as the JAX int8 variant does)
     :returns: count (n_lat, n_lon), sums (n_lat, n_lon, 4) [R, G, B, elev],
         float32. Count and R/G/B are exact; each elevation sum is within
-        2^-31 per sample of the exact sum, then rounded once to float32.
+        2^-31 ('bf16') or below 2^-16 ('i8') per sample of the exact sum,
+        then rounded once to float32.
     """
-    if compute == "i8":
-        raise NotImplementedError("compute='i8' (K1-i8) is not ported yet")
-    if compute != "bf16":
-        raise ValueError(f"unknown compute mode {compute!r}")
+    _check_compute(compute)
     if iy.device.type == "cuda":
         _check_inputs(grid, iy, ix, img_chw, elev)
-        return _bin_rgbelev_cuda(grid, iy, ix, img_chw, elev)
+        return _bin_rgbelev_cuda(grid, iy, ix, img_chw, elev, compute)
     if iy.device.type == "cpu":
-        return bin_rgbelev_plain(grid, iy, ix, img_chw, elev)
+        return bin_rgbelev_plain(grid, iy, ix, img_chw, elev, compute)
     raise ValueError(f"K1 runs on cuda (kernel) or cpu (plain); got {iy.device}")
 
 

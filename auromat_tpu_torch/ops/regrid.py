@@ -1,10 +1,12 @@
 """Plate-carree regridding: the fixed global grid and its bin indices.
 
-Counterpart of ``auromat_tpu.ops.regrid`` for the fused georegrid path:
-the host-side grid definition (:class:`GridSpec`, :func:`fixed_grid`),
-the per-sample bin index (:func:`bin_indices`) and the final divide
-(:func:`finalize_mean`). The binning itself is the K1 kernel in
-:mod:`auromat_tpu_torch.ops.georegrid`.
+Counterpart of ``auromat_tpu.ops.regrid``: the host-side grid definition
+(:class:`GridSpec`, :func:`fixed_grid`), the per-sample bin index
+(:func:`bin_indices`), the final divide (:func:`finalize_mean`), and the
+float64 mean binning with the reference's NaN-taint semantics
+(:func:`bin_mean`, :func:`bin_partial`). The kernels that bin are K1
+(:mod:`auromat_tpu_torch.ops.georegrid`) and K2/K3
+(:mod:`auromat_tpu_torch.ops.regrid_pallas`).
 
 Grid alignment: all resamplings share one global grid per resolution
 (reference resample.py:281-299 ``fixedGrid``) so mosaics line up cell-exact.
@@ -142,3 +144,85 @@ def finalize_mean(count, sums):
     """Divide reduced partial sums by counts; NaN where empty."""
     c = count[..., None]
     return torch.where(c > 0, sums / c, torch.nan)
+
+
+def _bin_sum_index_add(flat_idx, data, n_bins):
+    """(n_bins, 1 + C) float64 [count, channel sums]: one ``index_add_``,
+    with the invalid samples (``flat_idx == n_bins``) in a dropped slot."""
+    vals = torch.cat([torch.ones_like(data[:, :1]), data], dim=1)
+    acc = torch.zeros(n_bins + 1, vals.shape[1], dtype=torch.float64,
+                      device=data.device)
+    acc.index_add_(0, flat_idx.long(), vals)
+    return acc[:-1]
+
+
+# The JAX package's binning methods (segment sums, a scatter, and three
+# sort + compensated-prefix-sum variants) exist because a TPU serializes
+# scatter-adds. A GPU adds in place, so every method name is the same plain
+# float64 index_add_; the names stay so that callers' code runs unchanged.
+_BIN_METHODS = {name: _bin_sum_index_add for name in (
+    "segment", "scatter", "sorted", "sorted_gather", "sorted_packed")}
+
+
+def _flat_samples(grid, lats, lons, data):
+    n_ch = data.shape[-1]
+    flat_idx, valid = bin_indices(grid, lats.reshape(-1), lons.reshape(-1))
+    flat_data = data.reshape(-1, n_ch).to(torch.float64)
+    # zero out data of invalid samples so the dropped slot stays finite
+    return flat_idx, torch.where(valid[:, None], flat_data, 0.0)
+
+
+def bin_mean(grid: GridSpec, lats, lons, data, method="sorted"):
+    """Mean-bin multi-channel samples onto the grid (float64 sums).
+
+    :param lats, lons: sample coordinates (any shape), NaN = masked
+    :param data: (..., C) channel values per sample. NaN data at VALID
+        coordinates taints its bin's mean in that channel only (numpy
+        bincount/histogram2d semantics, which the reference relies on: it
+        bins img+elevation filled with NaN). NaNs are zeroed and binned
+        alongside per-channel taint indicator channels.
+    :param method: any name of ``_BIN_METHODS``
+    :returns: (count (n_lat, n_lon), means (n_lat, n_lon, C)), in the
+        promotion of ``data``'s dtype and float32; means are NaN where
+        count == 0
+    """
+    fn = _BIN_METHODS[method]
+    n_ch = data.shape[-1]
+    out_dtype = torch.promote_types(data.dtype, torch.float32)
+    flat_idx, flat_data = _flat_samples(grid, lats, lons, data)
+    taint = torch.isnan(flat_data)
+    flat_data = torch.cat([torch.where(taint, 0.0, flat_data),
+                           taint.to(torch.float64)], dim=1)
+    acc = fn(flat_idx, flat_data, grid.n_lat * grid.n_lon)
+    count = acc[:, 0].reshape(grid.n_lat, grid.n_lon)
+    sums = acc[:, 1:1 + n_ch].reshape(grid.n_lat, grid.n_lon, n_ch)
+    taints = acc[:, 1 + n_ch:].reshape(grid.n_lat, grid.n_lon, n_ch)
+    means = torch.where(taints > 0, torch.nan, finalize_mean(count, sums))
+    return count.to(out_dtype), means.to(out_dtype)
+
+
+def bin_partial(grid: GridSpec, lats, lons, data, method="segment"):
+    """Per-shard partial accumulation: (count, sums) without the divide.
+
+    NaN data at valid coordinates is treated as 0 here (partial sums must
+    stay finite for a cross-shard reduction); use :func:`bin_mean` for the
+    reference's NaN-taint semantics.
+
+    ``method='pallas'`` goes to the K2 binning kernel
+    (:func:`auromat_tpu_torch.ops.regrid_pallas.bin_partial_pallas2`,
+    (h, w) inputs, 'uint8' channel contract). Any other method name sums
+    in float64 and returns the promotion of ``data``'s dtype and float32.
+    """
+    if method == "pallas":
+        from auromat_tpu_torch.ops.regrid_pallas import bin_partial_pallas2
+
+        return bin_partial_pallas2(grid, lats, lons, data, "uint8")
+    fn = _BIN_METHODS[method]
+    n_ch = data.shape[-1]
+    out_dtype = torch.promote_types(data.dtype, torch.float32)
+    flat_idx, flat_data = _flat_samples(grid, lats, lons, data)
+    flat_data = torch.where(torch.isnan(flat_data), 0.0, flat_data)
+    acc = fn(flat_idx, flat_data, grid.n_lat * grid.n_lon)
+    count = acc[:, 0].reshape(grid.n_lat, grid.n_lon)
+    sums = acc[:, 1:].reshape(grid.n_lat, grid.n_lon, n_ch)
+    return count.to(out_dtype), sums.to(out_dtype)

@@ -1,0 +1,137 @@
+"""Host geometry utilities (numpy), counterpart of ``auromat_tpu.utils``.
+
+The parts the mapping data model and resampling need: the outline of a
+binary image, its convex hull, and the longitude wrap.
+
+``outline`` is a numpy border follower, not OpenCV: the card's machine
+has no cv2. It reproduces ``cv2.findContours(RETR_EXTERNAL,
+CHAIN_APPROX_NONE)`` point for point (Suzuki & Abe 1985, in OpenCV's
+formulation: the same raster scan, start pixels, neighbour order and
+border marks), so its output is array-equal to the JAX package's
+``utils.outline``, start point and orientation included —
+``Mapping.boundingBox`` samples the convex hull of that outline by index.
+
+Not ported: ``host_f64_device`` (a TPU workaround; the port computes host
+float64 with numpy or CPU torch directly) and ``points_inside_polygon``
+(matplotlib; only the interpolation resample methods use it).
+"""
+
+import numpy as np
+
+# OpenCV's 8-neighbour chain code: direction s -> (dx, dy), counterclockwise
+# from east with y pointing down (CV_INIT_3X3_DELTAS)
+_CODE_DX = (1, 1, 0, -1, -1, -1, 0, 1)
+_CODE_DY = (0, -1, -1, -1, 0, 1, 1, 1)
+_MARK = 2  # a followed border pixel whose east neighbour is not background
+# ... and -_MARK where the follower passed its east neighbour as background
+
+
+def _follow_outer_border(a, i0, deltas):
+    """Follow the outer border that starts at flat index ``i0`` of the
+    int8 image ``a`` (0 background, 1 unvisited foreground), marking its
+    pixels as it goes; returns the border's flat indices in order."""
+    s_end = s = 4
+    while True:  # first foreground neighbour clockwise from the west
+        s = (s - 1) & 7
+        i1 = i0 + deltas[s]
+        if a[i1] != 0 or s == s_end:
+            break
+    if s == s_end:  # a single-pixel component
+        a[i0] = -_MARK
+        return [i0]
+    pts = []
+    i3 = i0
+    while True:
+        s_end = s
+        while s < 15:  # next foreground neighbour counterclockwise
+            s += 1
+            i4 = i3 + deltas[s]
+            if a[i4] != 0:
+                break
+        s &= 7
+        if 0 <= s - 1 < s_end:  # the scan passed the (background) east pixel
+            a[i3] = -_MARK
+        elif a[i3] == 1:
+            a[i3] = _MARK
+        pts.append(i3)
+        if i4 == i0 and i3 == i1:
+            return pts
+        i3 = i4
+        s = (s + 4) & 7
+
+
+def _external_borders(padded):
+    """All outer borders of ``padded`` (uint8/bool, zero border) in the order
+    ``cv2.findContours(RETR_EXTERNAL, CHAIN_APPROX_NONE)`` returns them, as
+    (n, 2) int32 (x, y) arrays in ``padded``'s coordinates."""
+    h, w = padded.shape
+    a = (np.asarray(padded) != 0).astype(np.int8).ravel()
+    deltas = [1, -w + 1, -w, -w - 1, -1, w - 1, w, w + 1] * 2
+    found = []
+    for y in range(1, h - 1):
+        off = y * w
+        row = a[off:off + w]  # a view: sees the marks of earlier traces
+        lnbd = off  # last border pixel met on this row (column 0: background)
+        prev = 0
+        x = 1
+        while x < w - 1:
+            ahead = np.flatnonzero(row[x:w - 1] != prev)
+            if ahead.size == 0:
+                break
+            x += int(ahead[0])
+            p = int(row[x])
+            if prev == 0 and p == 1:  # the start of an outer border ...
+                if a[lnbd] <= 0:  # ... of a component not inside another
+                    found.append(_follow_outer_border(a, off + x, deltas))
+                    x += 1
+                    prev = int(row[x - 1])
+                    continue
+            elif p == 0 and prev >= 1 and prev != 1:  # a hole's border
+                lnbd = off + x - 1
+            prev = p
+            if prev not in (0, 1):
+                lnbd = off + x
+            x += 1
+    out = []
+    for pts in reversed(found):  # OpenCV lists the last one found first
+        idx = np.asarray(pts, dtype=np.int64)
+        out.append(np.stack([idx % w, idx // w], axis=1).astype(np.int32))
+    return out
+
+
+def _contour_area(c):
+    """|shoelace area| of a closed contour (cv2.contourArea)."""
+    x = c[:, 0].astype(np.float64)
+    y = c[:, 1].astype(np.float64)
+    return abs(0.5 * (np.dot(x, np.roll(y, -1)) - np.dot(y, np.roll(x, -1))))
+
+
+def outline(im):
+    """Outline of a binary image (True = inside) as (n, 2) int32 x, y.
+
+    The outer border of the largest component by area (ties: the one
+    OpenCV lists first), every border pixel (concave runs kept), in
+    OpenCV's start point and orientation. Border-touching regions are kept
+    by padding the image with one background pixel.
+    Reference: auromat/utils.py:76-151 (via OpenCV in the JAX package).
+    """
+    padded = np.zeros((im.shape[0] + 2, im.shape[1] + 2), dtype=np.uint8)
+    padded[1:-1, 1:-1] = np.asarray(im, dtype=bool)
+    contours = _external_borders(padded)
+    if not contours:
+        raise ValueError("binary image contains no region")
+    contour = contours[int(np.argmax([_contour_area(c) for c in contours]))]
+    return contour - 1
+
+
+def convex_hull(points):
+    """Convex hull of (n, 2) integer points, as ordered (m, 2) array."""
+    from scipy.spatial import ConvexHull
+
+    points = np.asarray(points)
+    return points[ConvexHull(points).vertices]
+
+
+def wrap_lon_180(lon):
+    """Wrap degrees into [-180, 180), host-side numpy float64."""
+    return (np.asarray(lon, dtype=np.float64) + 180.0) % 360.0 - 180.0

@@ -3,11 +3,13 @@
 
 Drives the port's main path — georeference the real 12 MP ISS frame
 ISS030-E-102170 (4256x2832) and mean-regrid it onto the 539x524 fixed grid
-— through ``auromat_tpu_torch.entry``, and checks it:
+— through ``auromat_tpu_torch.entry``, then the public slice
+``create_mapping`` -> ``resample('mean')`` of the same frame, and checks
+them:
 
 1. the card (``nvidia-smi`` name and power limit);
-2. builds every kernel of the path (K1, ``ops/csrc/georegrid_bin.cu``) from
-   the sources in this checkout;
+2. starts the build of every kernel source from this checkout, one nvcc
+   each, all at once, and waits for K1's (``ops/csrc/georegrid_bin.cu``);
 3. K1 against its plain PyTorch version on the card at the frame's shapes:
    all five outputs must be bit-equal;
 4. the main path on a few frames (one masked), with the kernel launch
@@ -17,7 +19,22 @@ ISS030-E-102170 (4256x2832) and mean-regrid it onto the 539x524 fixed grid
    same path with the plain binning; the float64 chain on the card must
    match the executed-reference golden to < 1e-6 deg;
 5. times (CUDA events, after warm-up): the main path per frame, K1 against
-   its plain version.
+   its plain version;
+6. waits for the other builds: K2/K3 (``ops/csrc/regrid_bin.cu``) and
+   K1-i8 (the i8 entry point of K1's library);
+7. at the full frame's bin indices: K2 in its 'uint8', 'full' and 'raw'
+   modes and on the taint stack, K3 through ``bin_partial_pallas``, and
+   K1-i8 each bit-equal to their plain versions, count totals equal to
+   the valid samples;
+8. the slice on the card: ``create_mapping`` of the frame (seeded image,
+   float64) and ``resample`` at the golden's 25 px/deg with the 'auto'
+   route (must launch K1) and the 'pallas_taint' route (must launch K2),
+   each held against golden_resample_ISS030-E-102170_dc.npz (grids,
+   elevation, mask), against each other and against ``resample`` on the
+   CPU; then K3's and K1-i8's entry points on the same frame;
+9. times: each new kernel against its plain version (CUDA events), and
+   ``create_mapping`` and ``resample`` wall time split into device and
+   host time.
 
 Prints one line per phase, then a JSON line of per-kernel results, and
 as the last line ``{"ok": true, "device": {...}}``. Any failure raises and
@@ -36,8 +53,11 @@ import time
 SEED = 0
 N_FRAMES = 3  # main-path requests; the last one is masked
 N_TIMED = 20  # timed repetitions per measurement
-GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
-                      "resources", "golden_georef_ISS030-E-102170_dc.npz")
+N_WALL = 3  # timed repetitions of the slice's host-inclusive wall times
+RES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                   "resources")
+GOLDEN = os.path.join(RES, "golden_georef_ISS030-E-102170_dc.npz")
+GOLDEN_RESAMPLE = os.path.join(RES, "golden_resample_ISS030-E-102170_dc.npz")
 
 
 def card_line():
@@ -59,6 +79,343 @@ def cuda_ms(torch, fn, reps):
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def start_builds(kernels):
+    """Build each kernel's library in its own thread, all started together;
+    {source: future of the build's seconds}."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    def build(k):
+        t0 = time.perf_counter()
+        k.build()
+        return time.perf_counter() - t0
+
+    pool = ThreadPoolExecutor(max_workers=len(kernels))
+    futures = {k.source: pool.submit(build, k) for k in kernels}
+    pool.shutdown(wait=False)
+    return futures
+
+
+def check_equal(torch, name, got, want):
+    """Raise unless the (count, sums) pairs are bit-equal; max |d| (0.0)."""
+    for what, a, b in zip(("count", "sums"), got, want):
+        if not torch.equal(a, b):
+            raise AssertionError(f"{name} kernel != plain version on {what}: "
+                                 f"max |d| {(a - b).abs().max().item()}")
+    return max((a - b).abs().max().item() for a, b in zip(got, want))
+
+
+def in_turns(torch, kernel, plain):
+    """Median CUDA-event ms of kernel and plain, measured plain, kernel,
+    kernel, plain on one card; then each side's runs."""
+    kernel(), plain()
+    runs = {kernel: [], plain: []}
+    for f in (plain, kernel, kernel, plain):
+        runs[f].append(cuda_ms(torch, f, N_TIMED))
+    return (statistics.median(runs[kernel]), statistics.median(runs[plain]),
+            runs[kernel], runs[plain])
+
+
+def wall_ms(torch, fn, reps):
+    """Median host-clock ms of ``fn()`` ending in a device synchronize."""
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def gate_resampled(np, name, r, golden):
+    """The slice's golden gates on a resampled mapping: grid coordinates
+    within 1e-9 deg, elevation within 1e-4, at most 4 mask cells apart."""
+    lats = np.asarray(r.lats.filled(np.nan))
+    if lats.shape != golden["lats"].shape:
+        raise AssertionError(f"{name}: grid {lats.shape} != golden "
+                             f"{golden['lats'].shape}")
+    gerr = 0.0
+    for ours, key in ((lats, "lats"), (r.lons.filled(np.nan), "lons"),
+                      (r.latsCenter.filled(np.nan), "lats_center"),
+                      (r.lonsCenter.filled(np.nan), "lons_center")):
+        ours = np.asarray(ours)
+        both = ~np.isnan(ours) & ~np.isnan(golden[key])
+        gerr = max(gerr, np.abs(ours[both] - golden[key][both]).max())
+    elev = np.asarray(r.elevation.filled(np.nan))
+    both = ~np.isnan(elev) & ~np.isnan(golden["elevation"])
+    eerr = np.abs(elev[both] - golden["elevation"][both]).max()
+    mdiff = int((np.ma.getmaskarray(r.img) != golden["img_mask"])
+                .any(axis=-1).sum())
+    if not (gerr < 1e-9 and eerr < 1e-4 and mdiff <= 4):
+        raise AssertionError(f"{name} vs golden: grids {gerr}, elevation "
+                             f"{eerr}, {mdiff} mask cells")
+    return gerr, eerr, mdiff
+
+
+def gate_routes(np, name, r, ref):
+    """Two resamplings of one mapping: equal masks (equal counts), uint8
+    within one step on at most 0.1% of the cells; returns (max step,
+    fraction off by one)."""
+    mask = np.ma.getmaskarray(r.img)
+    if not np.array_equal(mask, np.ma.getmaskarray(ref.img)):
+        raise AssertionError(f"{name}: masks differ")
+    ok = ~mask
+    d = np.abs(r.img.data.astype(int) - ref.img.data.astype(int))[ok]
+    if not (d.max() <= 1 and (d == 1).mean() < 1e-3):
+        raise AssertionError(f"{name}: uint8 max step {d.max()}, "
+                             f"{(d == 1).mean()} off by one")
+    return int(d.max()), float((d == 1).mean())
+
+
+def slice_phases(torch, np, builds, grid, iy, ix, out, card):
+    """Phases 6-9 at the main path's frame (its bin indices ``iy``, ``ix``
+    on ``grid`` and its georeference ``out``); returns the kernels-line
+    rows of K1-i8, K2 and K3."""
+    from auromat_tpu_torch.io import fits
+    from auromat_tpu_torch.mapping.astrometry import create_mapping
+    from auromat_tpu_torch.mapping.mapping import sanitize_masks
+    from auromat_tpu_torch.ops import _kernels
+    from auromat_tpu_torch.ops import regrid_pallas as rp
+    from auromat_tpu_torch.ops.georef import GeorefParams, georeference
+    from auromat_tpu_torch.ops.georegrid import (bin_mean_rgbelev,
+                                                 bin_rgbelev_from_indices,
+                                                 bin_rgbelev_plain,
+                                                 split_bin_indices)
+    from auromat_tpu_torch.ops.regrid import bin_indices, fixed_grid
+    from auromat_tpu_torch.coordinates.wcs import TanWcs
+    from auromat_tpu_torch.resample import resample
+    from auromat_tpu_torch.utils import convex_hull, outline
+
+    dev = torch.device("cuda")
+    elev, lat, lon = out["elevation"], out["lat"], out["lon"]
+    k1, k1i8 = _kernels.GEOREGRID_BIN, _kernels.GEOREGRID_BIN_I8
+    k2, k3 = _kernels.REGRID_BIN, _kernels.REGRID_BIN_V1
+
+    # -- 6. the other builds ------------------------------------------------
+    secs = builds[k2.source].result()
+    print(f"[6] built K2/K3 ({k2.source}) in {secs:.2f} s -> "
+          f"{os.path.relpath(k2.path)}", flush=True)
+    for name, k in (("K3", k3), ("K1-i8", k1i8)):
+        t0 = time.perf_counter()
+        k.build()
+        print(f"[6] loaded {name} ({k.source}, {k.symbol}) in "
+              f"{time.perf_counter() - t0:.3f} s (library built with "
+              f"{'K2' if k is k3 else 'K1'})", flush=True)
+
+    # -- 7. each new kernel vs its plain version at the frame's shapes -------
+    shape = tuple(iy.shape)
+    n_valid = int((iy >= 0).sum().item())
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    rand = lambda c: torch.rand(shape + (c,), generator=gen, device=dev)
+    img3 = torch.floor(rand(3) * 256)
+    data = {
+        "uint8": torch.cat([img3, elev[..., None]], -1).contiguous(),
+        "taint": torch.cat([img3, (rand(4) < 0.01).float(), elev[..., None]],
+                           -1).contiguous(),
+        "full": (rand(2) * 65535.0).contiguous(),
+        "raw": (rand(2) * 200 - 100).to(torch.bfloat16).float().contiguous(),
+    }
+    err = {}
+    for kind, d in data.items():
+        mode = "uint8" if kind == "taint" else kind
+        got = rp.bin_partial_pallas_cw(grid, (iy, ix), d, d.shape[-1], mode)
+        want = rp.bin_partial_cw_plain(grid, iy, ix, d, mode)
+        torch.cuda.synchronize()
+        err["K2"] = max(err.get("K2", 0.0),
+                        check_equal(torch, f"K2 '{kind}'", got, want))
+        if int(got[0].sum().item()) != n_valid:
+            raise AssertionError(f"K2 '{kind}': count total != valid samples")
+    got = rp.bin_partial_pallas(grid, lat, lon, data["uint8"], "uint8")
+    want = rp.bin_partial_cw_plain(grid, iy, ix, data["uint8"], "uint8")
+    torch.cuda.synchronize()
+    err["K3"] = check_equal(torch, "K3", got, want)
+    if int(got[0].sum().item()) != n_valid:
+        raise AssertionError("K3: count total != valid samples")
+    img_chw = img3.permute(2, 0, 1).contiguous()
+    got = bin_rgbelev_from_indices(grid, iy, ix, img_chw, elev, compute="i8")
+    want = bin_rgbelev_plain(grid, iy, ix, img_chw, elev, compute="i8")
+    torch.cuda.synchronize()
+    err["K1-i8"] = check_equal(torch, "K1-i8", got, want)
+    if int(got[0].sum().item()) != n_valid:
+        raise AssertionError("K1-i8: count total != valid samples")
+    print(f"[7] K2 ('uint8', 'full', 'raw', taint stack), K3 and K1-i8 == "
+          f"plain (torch.equal) at {shape[0]}x{shape[1]} -> "
+          f"{grid.n_lat}x{grid.n_lon}, {n_valid} valid samples", flush=True)
+
+    # -- 8. the slice: create_mapping -> resample on the card ----------------
+    golden = np.load(GOLDEN_RESAMPLE)
+    header = fits.read_header(os.path.join(RES, "ISS030-E-102170_dc.wcs"))
+    pos = np.array(fits.get_shifted_spacecraft_position(header)[:3])
+    photo_time = fits.get_shifted_photo_time(header)
+    frame = np.random.default_rng(SEED).integers(
+        0, 256, (header["IMAGEH"], header["IMAGEW"], 3), dtype=np.uint8)
+    altitude, ppd = float(golden["altitude"]), float(golden["px_per_deg"])
+    make = lambda: create_mapping(header, frame, pos, photo_time,
+                                  altitude=altitude, fast_center=False,
+                                  identifier="ISS030-E-102170_dc", device=dev)
+    m = make()
+    bb = m.boundingBox  # this frame has no pole and no discontinuity
+    rgrid = fixed_grid(ppd, bb.latSouth, bb.latNorth, bb.lonWest, bb.lonEast)
+    launches = {}
+    routes = {}
+    for route, kernel in (("auto", k1), ("pallas_taint", k2)):
+        for k in (k1, k1i8, k2, k3):
+            k.launches = 0
+        routes[route] = resample(m, px_per_deg=ppd, bin_method=route,
+                                 device=dev)
+        torch.cuda.synchronize()
+        launches[route] = kernel.launches
+        if kernel.launches < 1:
+            raise AssertionError(f"resample bin_method={route!r} never "
+                                 f"launched {kernel.source}")
+        gerr, eerr, mdiff = gate_resampled(np, route, routes[route], golden)
+        print(f"[8] resample {route!r} on the card: {kernel.launches} launch(es) "
+              f"of {'K1' if kernel is k1 else 'K2'}; vs golden: grids "
+              f"{gerr:.3g} deg, elevation {eerr:.3g}, {mdiff} mask cells",
+              flush=True)
+    cpu = resample(m, px_per_deg=ppd, device="cpu")
+    step, off1 = gate_routes(np, "auto vs pallas_taint", routes["auto"],
+                             routes["pallas_taint"])
+    print(f"[8] routes agree: masks equal, uint8 max step {step}, "
+          f"{off1:.2e} off by one", flush=True)
+    for route, r in routes.items():
+        step, off1 = gate_routes(np, f"{route} vs cpu", r, cpu)
+        print(f"[8] {route!r} vs resample on the CPU ('sorted', float64): "
+              f"masks equal, uint8 max step {step}, {off1:.2e} off by one",
+              flush=True)
+    # K3's and K1-i8's entry points on the same frame
+    lats_c = torch.from_numpy(m.latsCenter.filled(np.nan)).to(dev)
+    lons_c = torch.from_numpy(m.lonsCenter.filled(np.nan)).to(dev)
+    merged = torch.from_numpy(np.concatenate(
+        [frame.astype(np.float32), m.elevation.filled(np.nan)[..., None]
+         .astype(np.float32)], -1)).to(dev)
+    for k in (k1, k1i8, k2, k3):
+        k.launches = 0
+    c3, _ = rp.bin_partial_pallas(rgrid, lats_c, lons_c, merged, "uint8")
+    torch.cuda.synchronize()
+    launches["K3"] = k3.launches
+    for k in (k1, k1i8, k2, k3):
+        k.launches = 0
+    riy, rix = split_bin_indices(rgrid, *bin_indices(rgrid, lats_c, lons_c))
+    ci8, _ = bin_rgbelev_from_indices(
+        rgrid, riy, rix, merged[..., :3].permute(2, 0, 1).contiguous(),
+        merged[..., 3].contiguous(), compute="i8")
+    torch.cuda.synchronize()
+    launches["K1-i8"] = k1i8.launches
+    for name in ("K3", "K1-i8"):
+        if launches[name] < 1:
+            raise AssertionError(f"{name}'s entry point never launched it")
+    if not torch.equal(c3, ci8):
+        raise AssertionError("K3 and K1-i8 counts differ on the frame")
+    n_cells = int((c3 > 0).sum().item())
+    if n_cells != int((~np.ma.getmaskarray(routes["auto"].img)[..., 0]).sum()):
+        raise AssertionError("K3 filled cells != the resampled mapping's")
+    print(f"[8] K3 (bin_partial_pallas) and K1-i8 on the frame's centres: "
+          f"counts equal, {int(c3.sum().item())} samples into {n_cells} "
+          f"cells", flush=True)
+
+    # -- 9. times -------------------------------------------------------------
+    times = {}
+    for kind in ("taint", "uint8", "full"):
+        d = data[kind]
+        mode = "uint8" if kind == "taint" else kind
+        times["K2", kind] = in_turns(
+            torch, lambda: rp.bin_partial_pallas_cw(grid, (iy, ix), d,
+                                                    d.shape[-1], mode),
+            lambda: rp.bin_partial_cw_plain(grid, iy, ix, d, mode))
+    # K2 alone on the taint stack, without the wrapper's range checks,
+    # zero-fill and float epilogue
+    acc = torch.zeros(grid.n_lat * grid.n_lon, 1 + data["taint"].shape[-1],
+                      dtype=torch.int64, device=dev)
+    k2_alone_ms = cuda_ms(torch, lambda: rp.launch_k2(
+        grid, iy, ix, data["taint"], "uint8", acc), N_TIMED)
+    times["K3"] = in_turns(
+        torch, lambda: rp.bin_partial_pallas(grid, lat, lon, data["uint8"],
+                                             "uint8"),
+        lambda: rp.bin_partial_pallas_plain(grid, lat, lon, data["uint8"],
+                                            "uint8"))
+    times["K1-i8"] = in_turns(
+        torch, lambda: bin_rgbelev_from_indices(grid, iy, ix, img_chw, elev,
+                                                compute="i8"),
+        lambda: bin_rgbelev_plain(grid, iy, ix, img_chw, elev, compute="i8"))
+    for key, (k_ms, p_ms, _, _) in times.items():
+        label = key if isinstance(key, str) else f"{key[0]} {key[1]!r}"
+        print(f"[9] {label}: {k_ms:.3f} ms vs plain {p_ms:.3f} ms at "
+              f"{shape[0]}x{shape[1]} -> {grid.n_lat}x{grid.n_lon}; on {card}",
+              flush=True)
+    print(f"[9] K2 kernel alone on the taint stack: {k2_alone_ms:.3f} ms; on "
+          f"{card}", flush=True)
+
+    params = GeorefParams.from_wcs(TanWcs(header), pos, photo_time, altitude)
+    georef_ms = cuda_ms(torch, lambda: georeference(params, False, True,
+                                                    torch.float64, dev), 5)
+    out = georeference(params, False, True, torch.float64, dev)
+    keys = ("lats", "lons", "lats_center", "lons_center", "elevation")
+    d2h_ms = wall_ms(torch, lambda: [out[k].cpu() for k in keys], N_WALL)
+    cm, ccm = np.isnan(m._lats), np.isnan(m._lats_center)
+    t0 = time.perf_counter()
+    sanitize_masks(cm, ccm)
+    sanitize_ms = (time.perf_counter() - t0) * 1e3
+    create_ms = wall_ms(torch, make, N_WALL)
+    print(f"[9] create_mapping (4256x2832, float64, exact centres, MLat/MLT): "
+          f"{create_ms:.1f} ms wall = georeference {georef_ms:.1f} ms on the "
+          f"device + {create_ms - georef_ms:.1f} ms host (of which "
+          f"device->host copies of 5 float64 arrays {d2h_ms:.1f} ms, "
+          f"sanitize_masks {sanitize_ms:.1f} ms); on {card}", flush=True)
+
+    t0 = time.perf_counter()
+    o = outline(~m.corner_mask)
+    convex_hull(o)
+    outline_ms = (time.perf_counter() - t0) * 1e3
+    host_in = [m.latsCenter.filled(np.nan), m.lonsCenter.filled(np.nan),
+               np.concatenate([frame.astype(np.float64),
+                               m.elevation.filled(np.nan)[..., None]], -1)]
+    h2d_ms = wall_ms(torch, lambda: [torch.from_numpy(a).to(dev)
+                                     for a in host_in], N_WALL)
+    dev_in = [torch.from_numpy(a).to(dev) for a in host_in]
+    bin_ms = {
+        "auto": cuda_ms(torch, lambda: bin_mean_rgbelev(rgrid, *dev_in), 5),
+        "pallas_taint": cuda_ms(
+            torch, lambda: rp.bin_mean_pallas_taint(rgrid, *dev_in), 5)}
+
+    def fresh_resample(route):
+        m._outlines = m._bounding_box = None  # time the outline too
+        resample(m, px_per_deg=ppd, bin_method=route, device=dev)
+
+    wall = {}
+    for route in ("auto", "pallas_taint"):
+        wall[route] = wall_ms(torch, lambda: fresh_resample(route), N_WALL)
+        print(f"[9] resample {route!r} (-> {rgrid.n_lat}x{rgrid.n_lon}): "
+              f"{wall[route]:.1f} ms wall = binning {bin_ms[route]:.1f} ms on "
+              f"the device + {wall[route] - bin_ms[route]:.1f} ms host (of "
+              f"which outline + hull {outline_ms:.1f} ms, host->device copies "
+              f"of 3 float64 arrays {h2d_ms:.1f} ms); on {card}", flush=True)
+    slice_ms = create_ms + wall["auto"]
+    device_ms = georef_ms + bin_ms["auto"]
+    print(f"[9] slice per frame (create_mapping + resample 'auto'): "
+          f"{slice_ms:.1f} ms, of which {device_ms:.1f} ms on the device; "
+          f"on {card}", flush=True)
+
+    k2_ms, k2_plain, _, _ = times["K2", "taint"]
+    return [
+        {"name": "georegrid_bin i8 (K1-i8)", "route": "cuda",
+         "source": "auromat_tpu_torch/ops/csrc/georegrid_bin.cu",
+         "replaces": "auromat_tpu/ops/georegrid.py:142",
+         "launches": launches["K1-i8"], "max_abs_err": err["K1-i8"],
+         "ms": times["K1-i8"][0], "plain_ms": times["K1-i8"][1]},
+        {"name": "regrid_bin (K2)", "route": "cuda",
+         "source": "auromat_tpu_torch/ops/csrc/regrid_bin.cu",
+         "replaces": "auromat_tpu/ops/regrid_pallas.py:292",
+         "launches": launches["pallas_taint"], "max_abs_err": err["K2"],
+         "ms": k2_ms, "plain_ms": k2_plain},
+        {"name": "regrid_bin via bin_partial_pallas (K3)", "route": "cuda",
+         "source": "auromat_tpu_torch/ops/csrc/regrid_bin.cu",
+         "replaces": "auromat_tpu/ops/regrid_pallas.py:68",
+         "launches": launches["K3"], "max_abs_err": err["K3"],
+         "ms": times["K3"][0], "plain_ms": times["K3"][1]},
+    ]
 
 
 def main():
@@ -85,13 +442,13 @@ def main():
     print(f"[1] card: {card} | {torch.cuda.get_device_name(0)} | torch "
           f"{torch.__version__} cuda {torch.version.cuda}", flush=True)
 
-    # -- 2. build every kernel of the path --------------------------------
+    # -- 2. build every kernel source at once; wait for K1's ---------------
+    builds = start_builds([_kernels.GEOREGRID_BIN, _kernels.REGRID_BIN])
     kernels = {"K1": _kernels.GEOREGRID_BIN}
     for name, k in kernels.items():
-        t0 = time.perf_counter()
-        path = k.build()
-        print(f"[2] built {name} ({k.source}) in {time.perf_counter() - t0:.2f} s "
-              f"-> {os.path.relpath(path)}", flush=True)
+        secs = builds[k.source].result()
+        print(f"[2] built {name} ({k.source}) in {secs:.2f} s "
+              f"-> {os.path.relpath(k.path)}", flush=True)
 
     # -- 3. K1 vs its plain version at the frame's shapes ------------------
     grid, dyn, params = frame_setup(dev)
@@ -202,31 +559,29 @@ def main():
           f"(plain binning: {plain_path_ms:.3f}) at {h}x{w} -> "
           f"{grid.n_lat}x{grid.n_lon} on {card}", flush=True)
 
-    k1 = lambda: bin_rgbelev_from_indices(*k_args)
-    plain = lambda: bin_rgbelev_plain(*k_args)
-    k1(), plain()
-    order = [plain, k1, k1, plain]  # in turns, on one card
-    runs = {k1: [], plain: []}
-    for f in order:
-        runs[f].append(cuda_ms(torch, f, N_TIMED))
-    k1_ms, plain_ms = statistics.median(runs[k1]), statistics.median(runs[plain])
+    k1_ms, plain_ms, k1_runs, plain_runs = in_turns(
+        torch, lambda: bin_rgbelev_from_indices(*k_args),
+        lambda: bin_rgbelev_plain(*k_args))
     # the kernel alone, without the wrapper's zero-fill and f32 epilogue
     acc = torch.zeros(grid.n_lat * grid.n_lon, 4, dtype=torch.int32, device=dev)
     eacc = torch.zeros(grid.n_lat * grid.n_lon, dtype=torch.int64, device=dev)
     raw_ms = cuda_ms(torch, lambda: launch_k1(grid, iy, ix, frames[0], elev,
                                               acc, eacc), N_TIMED)
     print(f"[5] K1 wrapper {k1_ms:.3f} ms vs plain {plain_ms:.3f} ms "
-          f"(runs {[round(t, 3) for t in runs[k1]]} / "
-          f"{[round(t, 3) for t in runs[plain]]}); K1 kernel alone "
+          f"(runs {[round(t, 3) for t in k1_runs]} / "
+          f"{[round(t, 3) for t in plain_runs]}); K1 kernel alone "
           f"{raw_ms:.3f} ms; on {card}", flush=True)
 
-    print(card)
-    print(json.dumps({"kernels": [{
+    rows = [{
         "name": "georegrid_bin (K1)", "route": "cuda",
         "source": "auromat_tpu_torch/ops/csrc/georegrid_bin.cu",
         "replaces": "auromat_tpu/ops/georegrid.py:65",
         "launches": launches["K1"], "max_abs_err": k1_err,
-        "ms": k1_ms, "plain_ms": plain_ms}]}))
+        "ms": k1_ms, "plain_ms": plain_ms}]
+    rows += slice_phases(torch, np, builds, grid, iy, ix, out, card)
+
+    print(card)
+    print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -4,6 +4,12 @@
   mode) fed the same (iy, ix, img, elev): count and R/G/B bit-exact;
   elevation within the JAX kernel's limb-split error class
   (per-cell |d sum| / count < 2^-14, as in tests/test_georegrid.py).
+* K1-i8's plain version against the JAX int8 kernel (``compute='i8'``,
+  interpret mode): count and R/G/B bit-exact; both quantize each
+  elevation to the same floor(fl32(e + 90) * 2^16), so the elevation sums
+  differ only by the float32 rounding of the JAX recombination (three
+  limb sums added in float32) against the port's one rounding of the
+  exact sum: |d sum| <= 4 ulp(|sum| + 90 * count).
 * The synthetic empty / boundary-row cases of tests/test_georegrid.py.
 * The slice: port ``georegrid_mean`` against JAX ``georegrid_mean``
   (interpret mode) on the 128x96 scaled real frame, with the tolerance
@@ -50,16 +56,18 @@ def setup():
     return jdyn, dyn, img
 
 
-def run_jax_k1(grid_args, iy, ix, img, elev):
+def run_jax_k1(grid_args, iy, ix, img, elev, compute="bf16"):
     c, s = jax_k1(jax_fixed_grid(*grid_args), jnp.asarray(iy), jnp.asarray(ix),
-                  jnp.asarray(img), jnp.asarray(elev), interpret=True)
+                  jnp.asarray(img), jnp.asarray(elev), interpret=True,
+                  compute=compute)
     return np.asarray(c), np.asarray(s)
 
 
-def run_port_k1(grid_args, iy, ix, img, elev):
+def run_port_k1(grid_args, iy, ix, img, elev, compute="bf16"):
     c, s = bin_rgbelev_from_indices(fixed_grid(*grid_args),
                                     torch.from_numpy(iy), torch.from_numpy(ix),
-                                    torch.from_numpy(img), torch.from_numpy(elev))
+                                    torch.from_numpy(img), torch.from_numpy(elev),
+                                    compute=compute)
     assert c.dtype == torch.float32 and s.dtype == torch.float32
     return c.numpy(), s.numpy()
 
@@ -85,6 +93,26 @@ def test_k1_plain_matches_jax_kernel(setup):
     got, want = run_port_k1(*args), run_jax_k1(*args)
     assert got[0].sum() == (iy.numpy() >= 0).sum() > 1000
     assert_k1_parity(got, want)
+
+
+def test_k1_i8_plain_matches_jax_kernel(setup):
+    _, dyn, img = setup
+    grid = fixed_grid(*GRID_ARGS)
+    iy, ix, out = georegrid_inputs(grid, dyn, *img.shape[1:])
+    elev = out["elevation"].numpy()
+    elev[5, :40] = np.nan  # NaN data at valid coordinates adds 0
+    img = img.copy()
+    img[1, 50, :] = np.nan
+    args = (GRID_ARGS, iy.numpy(), ix.numpy(), img, elev)
+    (c, s), (jc, js) = run_port_k1(*args, "i8"), run_jax_k1(*args, "i8")
+    assert c.sum() == (iy.numpy() >= 0).sum() > 1000
+    assert np.array_equal(c, jc) and np.array_equal(s[..., :3], js[..., :3])
+    ulp = np.spacing((np.abs(s[..., 3]) + 90 * c).astype(np.float32))
+    assert np.all(np.abs(s[..., 3] - js[..., 3]) <= 4 * ulp)
+    # the i8 and bf16 modes differ only in the elevation quantization
+    cb, sb = run_port_k1(*args)
+    assert np.array_equal(c, cb) and np.array_equal(s[..., :3], sb[..., :3])
+    assert np.all(np.abs(s[..., 3] - sb[..., 3]) <= c * 2.0 ** -16 + 4 * ulp)
 
 
 class TestSyntheticIndices:
@@ -208,8 +236,8 @@ def test_k1_contract_errors(setup):
     grid = fixed_grid(*GRID_ARGS)
     iy, ix, out = georegrid_inputs(grid, dyn, *img.shape[1:])
     t = torch.from_numpy(img)
-    with pytest.raises(NotImplementedError):
-        bin_rgbelev_from_indices(grid, iy, ix, t, out["elevation"], compute="i8")
+    with pytest.raises(ValueError, match="compute"):
+        bin_rgbelev_from_indices(grid, iy, ix, t, out["elevation"], compute="i4")
     with pytest.raises(ValueError):
         bin_rgbelev_from_indices(grid, iy, ix, t.double(), out["elevation"])
     with pytest.raises(ValueError):

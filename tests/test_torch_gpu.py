@@ -16,6 +16,11 @@ only the port is installed:
   edge may move to the neighbouring cell; the bounds are those of the CPU
   comparison with the JAX package (tests/test_torch_georegrid.py).
 * The wrapper refuses what the kernel does not take.
+* K2 in every mode (and the taint stack), K3's entry and K1-i8 against
+  their plain versions at the full frame's bin indices: bit-equal.
+* ``resample`` on the card (the K1 and K2 routes) against ``resample`` on
+  the CPU for the same mapping: masks equal, uint8 within one step on at
+  most 0.1% of the cells (the K1/K2 routes divide in float32).
 """
 
 import os
@@ -32,7 +37,8 @@ from auromat_tpu_torch.ops.georef import DynGeorefParams, GeorefParams
 from auromat_tpu_torch.ops.georegrid import (bin_rgbelev_from_indices,
                                              bin_rgbelev_plain,
                                              georegrid_inputs, georegrid_mean)
-from auromat_tpu_torch.ops.regrid import fixed_grid
+from auromat_tpu_torch.ops import regrid_pallas as rp
+from auromat_tpu_torch.ops.regrid import bin_indices, fixed_grid
 
 RES = os.path.join(os.path.dirname(__file__), "resources")
 GRID = fixed_grid((36, 25), 47.0, 62.0, -112.0, -91.0)
@@ -142,3 +148,124 @@ def test_k1_wrapper_refuses_bad_input(cuda, frame):
         bin_rgbelev_from_indices(GRID, iy, ix, img.cpu(), elev)
     with pytest.raises(ValueError):
         bin_rgbelev_from_indices(GRID, iy, ix, img.half(), elev)
+
+
+@pytest.fixture(scope="module")
+def full_frame():
+    """(grid, iy, ix, lat, lon, elevation) of the full 4256x2832 frame on
+    the card, or a skip."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from auromat_tpu_torch.entry import frame_setup
+
+    grid, dyn, params = frame_setup("cuda")
+    iy, ix, out = georegrid_inputs(grid, dyn, params.height, params.width)
+    return grid, iy, ix, out["lat"], out["lon"], out["elevation"]
+
+
+def k2_data(kind, shape, elev):
+    """Seeded (h, w, n_ch) float32 data on the card for each K2 mode."""
+    g = torch.Generator(device="cuda").manual_seed(7)
+    rand = lambda c: torch.rand(shape + (c,), generator=g, device="cuda")
+    if kind == "uint8":
+        return torch.cat([torch.floor(rand(3) * 256), elev[..., None]], -1)
+    if kind == "taint":  # 3 image, 4 taint indicators, elevation
+        return torch.cat([torch.floor(rand(3) * 256),
+                          (rand(4) < 0.01).float(), elev[..., None]], -1)
+    if kind == "full":
+        return rand(2) * 65535.0
+    return (rand(2) * 200 - 100).to(torch.bfloat16).float()  # raw
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["uint8", "taint", "full", "raw"])
+def test_k2_kernel_matches_plain_full_frame(full_frame, kind):
+    grid, iy, ix, _, _, elev = full_frame
+    data = k2_data(kind, tuple(iy.shape), elev)
+    mode = "uint8" if kind == "taint" else kind
+    before = _kernels.REGRID_BIN.launches
+    kc, ks = rp.bin_partial_pallas_cw(grid, (iy, ix), data, data.shape[-1], mode)
+    pc, ps = rp.bin_partial_cw_plain(grid, iy, ix, data, mode)
+    torch.cuda.synchronize()
+    assert _kernels.REGRID_BIN.launches == before + 1
+    assert torch.equal(kc, pc) and torch.equal(ks, ps)
+    assert kc.sum().item() == (iy >= 0).sum().item() > 6_000_000
+
+
+@pytest.mark.gpu
+def test_k3_entry_matches_plain_full_frame(full_frame):
+    grid, iy, ix, lat, lon, elev = full_frame
+    data = k2_data("uint8", tuple(iy.shape), elev)
+    before = _kernels.REGRID_BIN_V1.launches
+    kc, ks = rp.bin_partial_pallas(grid, lat, lon, data, "uint8")
+    flat, valid = bin_indices(grid, lat, lon)
+    assert torch.equal(torch.where(valid, flat // grid.n_lon, -1).int(), iy)
+    pc, ps = rp.bin_partial_cw_plain(grid, iy, ix, data, "uint8")
+    torch.cuda.synchronize()
+    assert _kernels.REGRID_BIN_V1.launches == before + 1
+    assert torch.equal(kc, pc) and torch.equal(ks, ps)
+
+
+@pytest.mark.gpu
+def test_k1_i8_kernel_matches_plain_full_frame(full_frame):
+    grid, iy, ix, _, _, elev = full_frame
+    img = k2_data("uint8", tuple(iy.shape), elev)[..., :3]
+    img = img.permute(2, 0, 1).contiguous()
+    before = _kernels.GEOREGRID_BIN_I8.launches
+    kc, ks = bin_rgbelev_from_indices(grid, iy, ix, img, elev, compute="i8")
+    pc, ps = bin_rgbelev_plain(grid, iy, ix, img, elev, compute="i8")
+    torch.cuda.synchronize()
+    assert _kernels.GEOREGRID_BIN_I8.launches == before + 1
+    assert torch.equal(kc, pc) and torch.equal(ks, ps)
+
+
+@pytest.mark.gpu
+def test_k2_wrapper_refuses_bad_input(cuda, frame):
+    dyn, h, w = small_dyn(cuda)
+    iy, ix, out = georegrid_inputs(GRID, dyn, h, w)
+    data = torch.from_numpy(frame).to(cuda).permute(1, 2, 0).contiguous()
+    call = lambda d, mode="uint8", i=iy: rp.bin_partial_pallas_cw(
+        GRID, (i, ix), d, d.shape[-1], mode)
+    call(data)
+    with pytest.raises(ValueError, match="contiguous"):
+        call(data, i=iy.t().contiguous().t())
+    with pytest.raises(ValueError, match="integers"):
+        call(data + 0.5)
+    with pytest.raises(ValueError, match="65536"):
+        call(data * 1000, "full")
+    with pytest.raises(ValueError, match="overflow"):
+        call(torch.round(data) * 2.0 ** 50, "raw")
+    with pytest.raises(ValueError):  # mixed devices
+        call(data.cpu())
+
+
+@pytest.mark.gpu
+def test_resample_gpu_matches_cpu(cuda):
+    from auromat_tpu_torch.mapping.astrometry import create_mapping
+    from auromat_tpu_torch.resample import resample
+
+    header = fits.read_header(os.path.join(RES, "ISS030-E-102170_dc.wcs"))
+    scale = header["IMAGEW"] / 512
+    for k in ("CD1_1", "CD1_2", "CD2_1", "CD2_2"):
+        header[k] = header[k] * scale
+    header["CRPIX1"], header["CRPIX2"] = (header["CRPIX1"] / scale,
+                                          header["CRPIX2"] / scale)
+    header["IMAGEW"], header["IMAGEH"] = 512, 384
+    img = np.random.default_rng(3).integers(0, 256, (384, 512, 3), dtype=np.uint8)
+    m = create_mapping(header, img, fits.get_shifted_spacecraft_position(header)[:3],
+                       fits.get_shifted_photo_time(header), device=cuda)
+    want = resample(m, px_per_deg=5)
+    for method, kernel in (("auto", _kernels.GEOREGRID_BIN),
+                           ("pallas_taint", _kernels.REGRID_BIN)):
+        before = kernel.launches
+        got = resample(m, px_per_deg=5, bin_method=method, device=cuda)
+        assert kernel.launches == before + 1
+        assert np.array_equal(got.lats.data, want.lats.data)
+        mask = np.ma.getmaskarray(got.img)
+        assert np.array_equal(mask, np.ma.getmaskarray(want.img))
+        ok = ~mask
+        assert ok.mean() > 0.2
+        d = np.abs(got.img.data.astype(int) - want.img.data.astype(int))[ok]
+        assert d.max() <= 1 and (d == 1).mean() < 1e-3
+        e = np.abs(got.elevation.data - want.elevation.data)[ok[..., 0]]
+        assert e.max() < 1e-4
