@@ -1,8 +1,8 @@
 """Coordinate conversions as torch tensor code (counterpart of
-``auromat_tpu.coordinates.transform``): the geodetic <-> ECEF pair and
-the rigid pole rotation that resampling uses to move a footprint off a
-pole. Each function computes in the dtype and on the device of its
-inputs; the callers pass float64.
+``auromat_tpu.coordinates.transform``): the geodetic <-> ECEF pair, the
+rigid pole rotation that resampling uses to move a footprint off a pole,
+and ECEF -> MLat/MLT. Each function computes in the dtype and on the
+device of its inputs; the callers pass float64.
 """
 
 import numpy as np
@@ -72,3 +72,17 @@ def rotate_pole(lats, lons, altitude, angle_deg=90.0, axis=(1, 0, 0),
     yr = m[1][0] * x + m[1][1] * y + m[1][2] * z
     zr = m[2][0] * x + m[2][1] * y + m[2][2] * z
     return ecef_to_geodetic(xr, yr, zr, a, b)
+
+
+def geo_to_mlat_mlt(vecs, mat_geo_to_sm):
+    """ECEF (..., 3) -> (MLat deg, MLT hours).
+
+    Reference: auromat/coordinates/transform.py:432-459.
+    """
+    m = torch.as_tensor(np.asarray(mat_geo_to_sm), dtype=vecs.dtype,
+                        device=vecs.device)
+    sm = vecs @ m.T
+    x, y, z = sm[..., 0], sm[..., 1], sm[..., 2]
+    mlat = torch.rad2deg(torch.atan2(z, torch.sqrt(x * x + y * y)))
+    mlt = torch.rad2deg(torch.atan2(y, x)) * (24.0 / 360.0) + 12.0
+    return mlat, mlt

@@ -1,1 +1,2 @@
-"""Host-side file I/O: FITS headers (the subset the port needs) and images."""
+"""Host-side file I/O: FITS headers (the subset the port needs), images,
+CDF (``cdflib``) and NetCDF-4 (``nc4``)."""

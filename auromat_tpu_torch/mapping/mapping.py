@@ -1,8 +1,9 @@
 """Core data model: a georeferenced image with NaN-masked coordinate grids.
 
 Counterpart of ``auromat_tpu.mapping.mapping``, cut to what
-:func:`auromat_tpu_torch.mapping.astrometry.create_mapping` and
-:func:`auromat_tpu_torch.resample.resample` use. As in the JAX package the
+:func:`auromat_tpu_torch.mapping.astrometry.create_mapping`,
+:func:`auromat_tpu_torch.resample.resample`, the exporters and the convert
+CLI use. As in the JAX package the
 geometry stays on the host: a :class:`Mapping` holds numpy float64 arrays
 where NaN is the mask, with numpy masked-array views for API familiarity,
 and the mask-consistency invariants (reference mapping.py:295-316) are
@@ -15,20 +16,21 @@ Mask invariants (identical to the reference):
   - a corner is defined iff at least one adjacent centre is defined
   - a centre is defined iff all 4 of its corners are defined
 
-Not ported yet: masking (``createMasked``, ``maskedByElevation``,
-``maskedByPolygon``), the geodetic MLat/MLT conversion and
-``convert_mapping_to_sm`` (a mapping from ``create_mapping`` carries the
-MLat/MLT computed from the J2000 intersections), centroid, pixel scales,
-``BoundingBox.center``/``size``, and the providers.
+Not ported yet: ``maskedByPolygon``, ``convert_mapping_to_sm``,
+centroid, pixel scales, ``BoundingBox.center``/``size``, and
+``MaskByElevationProvider``.
 """
 
 import numpy as np
 import numpy.ma as ma
+import torch
 
 from auromat_tpu_torch import utils
 from auromat_tpu_torch.coordinates.frames import FrameMatrices
 from auromat_tpu_torch.coordinates.geodesic import (Location,
                                                     contains_or_crosses_pole)
+from auromat_tpu_torch.coordinates.transform import (geo_to_mlat_mlt,
+                                                     geodetic_to_ecef)
 
 
 class BoundingBox:
@@ -162,6 +164,37 @@ def sanitize_masks(corner_mask, center_mask, after_masking=False):
     return corner_mask, center_mask
 
 
+def check_plate_carree(lats, lons):
+    """Raise ValueError unless lats/lons form a regular plate-carree grid.
+
+    Reference: auromat/mapping/mapping.py:931-961.
+    """
+    if ma.isMaskedArray(lats):
+        lats, lons = lats.data, lons.data
+    if np.any(np.isnan(lats)):
+        raise ValueError("coordinates contain NaNs")
+    lons = np.unwrap(np.deg2rad(lons))
+    if lons[0, -1] - lons[0, 0] <= 0:
+        raise ValueError("longitudes are not monotonically increasing")
+    if lats[0, 0] - lats[-1, 0] <= 0:
+        raise ValueError("latitudes are not monotonically decreasing")
+    eps = 1e-4
+    d_lon = lons[0, 1:] - lons[0, :-1]
+    if np.max(d_lon) - np.min(d_lon) >= eps:
+        raise ValueError("longitudes are not evenly spaced")
+    d_lat = lats[:-1, 0] - lats[1:, 0]
+    if np.max(d_lat) - np.min(d_lat) >= eps:
+        raise ValueError("latitudes are not evenly spaced")
+
+
+def is_plate_carree(lats, lons):
+    try:
+        check_plate_carree(lats, lons)
+        return True
+    except Exception:
+        return False
+
+
 class Mapping:
     """A georeferenced image for a given emission altitude.
 
@@ -287,21 +320,29 @@ class Mapping:
 
     # ---- magnetic coordinates
 
+    def _mlat_mlt(self, lats_deg, lons_deg, mask):
+        """MLat/MLT from geodetic coordinates at the mapping's altitude
+        (host float64, CPU torch)."""
+        t = lambda a: torch.from_numpy(np.deg2rad(a))
+        x, y, z = geodetic_to_ecef(t(lats_deg), t(lons_deg), self._altitude)
+        mlat, mlt = geo_to_mlat_mlt(torch.stack([x, y, z], dim=-1),
+                                    self.frame_matrices.geo_to_sm)
+        return (ma.masked_array(mlat.numpy(), mask, copy=False),
+                ma.masked_array(mlt.numpy(), mask, copy=False))
+
     @property
     def mLatMlt(self):
         """(mlat, mlt) masked arrays for pixel corners."""
         if self._mlatmlt is None:
-            raise NotImplementedError(
-                "MLat/MLT from geodetic coordinates is not ported yet; "
-                "create_mapping(with_mlatmlt=True) supplies it")
+            self._mlatmlt = self._mlat_mlt(self._lats, self._lons,
+                                           self._corner_mask_arr)
         return self._mlatmlt
 
     @property
     def mLatMltCenter(self):
         if self._mlatmlt_center is None:
-            raise NotImplementedError(
-                "MLat/MLT from geodetic coordinates is not ported yet; "
-                "create_mapping(with_mlatmlt=True) supplies it")
+            self._mlatmlt_center = self._mlat_mlt(
+                self._lats_center, self._lons_center, self._center_mask_arr)
         return self._mlatmlt_center
 
     # ---- derived geometry
@@ -370,6 +411,56 @@ class Mapping:
     def containsPole(self):
         return self.boundingBox.containsPole
 
+    # ---- masking
+
+    def createMasked(self, center_mask):
+        """New Mapping with the given centre mask added (corner mask is
+        re-derived by the sanitize fixpoint)."""
+        corner_mask, center_mask = sanitize_masks(
+            self.corner_mask, self.center_mask | center_mask, after_masking=True
+        )
+        m = self._clone(self._lats, self._lons, self._lats_center,
+                        self._lons_center, self._elevation, self._img)
+        m._corner_mask_arr = corner_mask
+        m._center_mask_arr = center_mask
+        # carry precomputed MLat/MLT (the J2000-derived values of
+        # astrometry mappings) under the widened masks — recomputing them
+        # lazily would switch to the less accurate geodetic path
+        if self._mlatmlt is not None:
+            a, b = self._mlatmlt
+            m._mlatmlt = (
+                ma.masked_array(np.asarray(ma.filled(a, np.nan)), corner_mask),
+                ma.masked_array(np.asarray(ma.filled(b, np.nan)), corner_mask),
+            )
+        if self._mlatmlt_center is not None:
+            a, b = self._mlatmlt_center
+            m._mlatmlt_center = (
+                ma.masked_array(np.asarray(ma.filled(a, np.nan)), center_mask),
+                ma.masked_array(np.asarray(ma.filled(b, np.nan)), center_mask),
+            )
+        return m
+
+    def _clone(self, lats, lons, lats_c, lons_c, elev, img):
+        m = type(self)(
+            lats, lons, lats_c, lons_c, elev, self._altitude, img,
+            self._camera_pos, self._photo_time, self._identifier,
+            metadata=self._metadata, sanitized=True,
+            frame_matrices=self._frame_matrices,
+        )
+        if hasattr(self, "wcs_header"):
+            m.wcs_header = self.wcs_header
+        return m
+
+    def maskedByElevation(self, min_elevation=10):
+        """Reference: auromat/mapping/mapping.py:845-864."""
+        if self._elevation is None:
+            raise ValueError("the mapping has no elevation to mask by")
+        with np.errstate(invalid="ignore"):
+            center_mask = ~(self._elevation >= min_elevation)
+        if np.all(center_mask):
+            raise ValueError(f"minElevation={min_elevation} would mask all pixels!")
+        return self.createMasked(center_mask)
+
     # ---- conversion/creation
 
     def createResampled(self, lats, lons, lats_center, lons_center, elevation, img):
@@ -378,6 +469,13 @@ class Mapping:
             self._camera_pos, self._photo_time, self._identifier,
             metadata=self._metadata, frame_matrices=self._frame_matrices,
         )
+
+    @property
+    def isPlateCarree(self):
+        return is_plate_carree(self._lats, self._lons)
+
+    def checkPlateCarree(self):
+        check_plate_carree(self._lats, self._lons)
 
 
 GenericMapping = Mapping
@@ -402,6 +500,12 @@ class MappingCollection:
     def empty(self):
         return len(self._mappings) == 0
 
+    def maskedByElevation(self, min_elevation=10):
+        return MappingCollection(
+            [m.maskedByElevation(min_elevation) for m in self._mappings],
+            self._identifier, self._may_overlap,
+        )
+
     @property
     def boundingBox(self):
         return BoundingBox.mergedBoundingBoxes(m.boundingBox for m in self._mappings)
@@ -416,3 +520,32 @@ class MappingCollection:
 
     def __iter__(self):
         return iter(self._mappings)
+
+
+class BaseMappingProvider:
+    """Provider protocol: get / getById / getSequence / contains / range.
+
+    Reference: auromat/mapping/mapping.py:1375-1445.
+    """
+
+    def __init__(self, maxTimeOffset=3):
+        self.maxTimeOffset = maxTimeOffset
+
+    @property
+    def range(self):
+        raise NotImplementedError
+
+    def contains(self, date):
+        raise NotImplementedError
+
+    def containsAny(self, dates):
+        return any(self.contains(d) for d in dates)
+
+    def get(self, date):
+        raise NotImplementedError
+
+    def getById(self, identifier):
+        raise NotImplementedError
+
+    def getSequence(self, dateBegin=None, dateEnd=None):
+        raise NotImplementedError

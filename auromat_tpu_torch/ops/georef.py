@@ -98,6 +98,27 @@ class DynGeorefParams(NamedTuple):
         return DynGeorefParams(*(v.to(device=device, dtype=dtype)
                                  for v in self))
 
+    @staticmethod
+    def stack(params_list, dtype=torch.float32, device="cpu"):
+        """Stack per-frame calibration (a list of :class:`GeorefParams`)
+        along a new leading frame axis: numpy stacking on the host, then
+        ONE transfer of all fields to ``device``."""
+        fields = [np.stack([np.asarray(getattr(p, f), dtype=np.float64)
+                            for p in params_list])
+                  for f in DynGeorefParams._fields]
+        n = len(params_list)
+        flat = torch.from_numpy(np.concatenate(
+            [a.reshape(n, -1) for a in fields], axis=1)).to(device=device,
+                                                            dtype=dtype)
+        cols = np.cumsum([0] + [a[0].size for a in fields])
+        return DynGeorefParams(*(
+            flat[:, c0:c1].reshape(a.shape)
+            for a, c0, c1 in zip(fields, cols[:-1], cols[1:])))
+
+    def frame(self, i):
+        """Frame ``i`` of a stacked :class:`DynGeorefParams` (views)."""
+        return DynGeorefParams(*(v[i] for v in self))
+
 
 def dyn_params_from_numpy(fields, device, dtype):
     """A :class:`DynGeorefParams` from a dict of numpy arrays keyed by field.
@@ -206,13 +227,14 @@ def _elevation_deg(vx, vy, vz, ix, iy, iz):
 
 
 def georef_latlon_dyn(p: DynGeorefParams, px, py, dtype=torch.float32,
-                      with_elevation=False):
+                      with_elevation=False, with_mlatmlt=False):
     """Georeference pixel coords (0-based pixel centres) with per-frame params.
 
     ``p``, ``px`` and ``py`` share one device and the dtype ``dtype``.
 
-    :returns: dict with lat, lon (+ elevation when requested), degrees,
-        NaN where the ray misses the inflated ellipsoid
+    :returns: dict with lat, lon (+ elevation, mlat, mlt when requested),
+        degrees (MLT in hours), NaN where the ray misses the inflated
+        ellipsoid
     """
     vx, vy, vz = _pixel_dirs(p, px, py)
     ix, iy, iz = _intersect(p, vx, vy, vz, dtype)
@@ -220,6 +242,8 @@ def georef_latlon_dyn(p: DynGeorefParams, px, py, dtype=torch.float32,
     out = {"lat": lat, "lon": lon}
     if with_elevation:
         out["elevation"] = _elevation_deg(vx, vy, vz, ix, iy, iz)
+    if with_mlatmlt:
+        out["mlat"], out["mlt"] = _mlatmlt_from_j2000(p, ix, iy, iz)
     return out
 
 
@@ -285,6 +309,15 @@ def georeference_generic(wcs, params=None, fast_center=False,
     raise NotImplementedError(
         "georeferencing non-TAN WCS headers is not ported yet (ROADMAP "
         "queue 1 item 8, generic WCS on device); only TAN headers are")
+
+
+def georeference_dyn(p: DynGeorefParams, width, height, fast_center=False,
+                     with_mlatmlt=True, dtype=torch.float32):
+    """:func:`georeference` of one frame from its calibration as tensors
+    (e.g. one :meth:`DynGeorefParams.frame` of a stacked burst), on the
+    device and in the dtype of ``p``; same outputs."""
+    return _georeference_body(p, width, height, fast_center, with_mlatmlt,
+                              dtype)
 
 
 def _georeference_body(p, width, height, fast_center, with_mlatmlt, dtype):

@@ -19,6 +19,16 @@ once (24 bytes a cell: ~0.6 GB even for the 0.05 deg global grid), so the
 TPU package's VMEM workarounds — lat slabs, tile bounds, tile shapes —
 have no counterpart here.
 
+K1 takes any (n, w) block of samples: one frame (h, w) or a burst of
+frames stacked along the rows (B*h, w), as the mosaic step
+(:mod:`auromat_tpu_torch.parallel.sharding`) passes it. Its count and
+R/G/B words are uint32. Neither can wrap unseen: the samples of one call
+number < 2^32, so no count wraps, and every call checks after binning
+that no cell holds more than :data:`MAX_CELL_COUNT` samples, so no R/G/B
+sum (<= 255 a sample) wraps; a call that breaks either bound raises.
+:func:`bin_rgbelev_int` and :func:`bin_rgbelev_plain_int` return the
+integer sums themselves, for callers that add them across calls.
+
 Reference: auromat/mapping/astrometry.py:49-212 + auromat/resample.py:
 328-351 (the lazy-property pyramid + histogram2d rebin, fused).
 """
@@ -35,6 +45,8 @@ ELEV_OFFSET = 90.0  # elevation + 90 >= 0: the fixed-point sums are unsigned
 ELEV_SCALE = 2.0 ** 30  # fixed-point scale of the elevation sums
 ELEV_SCALE_I8 = 2.0 ** 16  # K1-i8: elevation floor-quantized to 2^-16
 _KERNELS = {"bf16": GEOREGRID_BIN, "i8": GEOREGRID_BIN_I8}
+# the most samples a cell may hold: 255 * count still fits a uint32 word
+MAX_CELL_COUNT = (2 ** 32 - 1) // 255  # 16,843,009
 
 
 def _check_inputs(grid, iy, ix, img_chw, elev):
@@ -48,10 +60,20 @@ def _check_inputs(grid, iy, ix, img_chw, elev):
                              f"{t.dtype} {tuple(t.shape)}")
         if t.device != iy.device:
             raise ValueError(f"{name} is on {t.device}, iy on {iy.device}")
-    if h * w * 255 >= 2 ** 32:
-        raise ValueError(f"{h}x{w} samples could overflow the uint32 sums")
+    if h * w >= 2 ** 32:
+        raise ValueError(f"{h}x{w} samples could overflow the uint32 counts")
     if grid.n_lat * grid.n_lon >= 2 ** 31:
         raise ValueError("grid too large for int32 cell indices")
+
+
+def _check_cell_counts(count):
+    """Raise if a cell holds more than :data:`MAX_CELL_COUNT` samples: its
+    uint32 R/G/B sums could then have wrapped in the kernel (one
+    reduction and one host sync a call)."""
+    most = int(count.max().item()) if count.numel() else 0
+    if most > MAX_CELL_COUNT:
+        raise ValueError(f"a cell holds {most} samples: its uint32 R/G/B "
+                         f"sums could overflow (at most {MAX_CELL_COUNT})")
 
 
 def _check_compute(compute):
@@ -59,7 +81,7 @@ def _check_compute(compute):
         raise ValueError(f"unknown compute mode {compute!r}")
 
 
-def _finish(grid, cnt_rgb, elev_fixed, compute):
+def finish_int_sums(grid, cnt_rgb, elev_fixed, compute):
     """Integer sums -> f32 (count (n_lat, n_lon), sums (n_lat, n_lon, 4)).
 
     :param cnt_rgb: (n_cells, 4) int64 [count, R, G, B]
@@ -80,9 +102,17 @@ def bin_rgbelev_plain(grid: GridSpec, iy, ix, img_chw, elev,
     contract: count and R/G/B as exact integer sums, elevation as a
     fixed-point integer sum (``index_add_`` of int64): round((e + 90) *
     2^30) in double for K1, floor(fl32(e + 90) * 2^16) for K1-i8. Bit-equal
-    to the kernel on all five outputs. Arguments and result as
-    :func:`bin_rgbelev_from_indices`.
+    to the kernel on all five outputs, and it refuses what the kernel
+    refuses. Arguments and result as :func:`bin_rgbelev_from_indices`.
     """
+    return finish_int_sums(grid, *bin_rgbelev_plain_int(
+        grid, iy, ix, img_chw, elev, compute), compute)
+
+
+def bin_rgbelev_plain_int(grid: GridSpec, iy, ix, img_chw, elev,
+                          compute="bf16"):
+    """The integer sums of :func:`bin_rgbelev_plain` on any device, as
+    :func:`bin_rgbelev_int` returns them."""
     _check_compute(compute)
     _check_inputs(grid, iy, ix, img_chw, elev)
     n_cells = grid.n_lat * grid.n_lon
@@ -95,13 +125,14 @@ def bin_rgbelev_plain(grid: GridSpec, iy, ix, img_chw, elev,
     vals = torch.cat([torch.ones_like(cell)[None], img.long()], dim=0).T
     cnt_rgb = torch.zeros(n_cells, 4, dtype=torch.int64, device=iy.device)
     cnt_rgb.index_add_(0, cell, vals)
+    _check_cell_counts(cnt_rgb[:, 0])
     if compute == "i8":  # the add in float32, then an exact scale and floor
         q = torch.floor((e + ELEV_OFFSET) * ELEV_SCALE_I8).long()
     else:
         q = torch.round((e.double() + ELEV_OFFSET) * ELEV_SCALE).long()
     elev_fixed = torch.zeros(n_cells, dtype=torch.int64, device=iy.device)
     elev_fixed.index_add_(0, cell, q)
-    return _finish(grid, cnt_rgb, elev_fixed, compute)
+    return cnt_rgb, elev_fixed
 
 
 def launch_k1(grid, iy, ix, img_chw, elev, acc, elev_acc, compute="bf16"):
@@ -127,7 +158,30 @@ def _bin_rgbelev_cuda(grid, iy, ix, img_chw, elev, compute):
     elev_acc = torch.zeros(n_cells, dtype=torch.int64, device=iy.device)
     launch_k1(grid, iy, ix, img_chw, elev, acc, elev_acc, compute)
     # the int32 words hold uint32 sums: reinterpret before widening
-    return _finish(grid, acc.long() & 0xFFFFFFFF, elev_acc, compute)
+    cnt_rgb = acc.long() & 0xFFFFFFFF
+    _check_cell_counts(cnt_rgb[:, 0])
+    return cnt_rgb, elev_acc
+
+
+def bin_rgbelev_int(grid: GridSpec, iy, ix, img_chw, elev, compute="bf16"):
+    """K1's integer sums, before the float32 epilogue.
+
+    CUDA tensors go to the K1 kernel; CPU tensors to its plain version,
+    :func:`bin_rgbelev_plain_int`. Any other device raises. Arguments as
+    :func:`bin_rgbelev_from_indices`.
+
+    :returns: cnt_rgb (n_cells, 4) int64 [count, R, G, B] and elev_fixed
+        (n_cells,) int64, the sum of the fixed-point elevations (+ 90 deg)
+        at the scale of ``compute``; both exact, so sums of several calls
+        equal one call over all their samples
+    """
+    _check_compute(compute)
+    if iy.device.type == "cuda":
+        _check_inputs(grid, iy, ix, img_chw, elev)
+        return _bin_rgbelev_cuda(grid, iy, ix, img_chw, elev, compute)
+    if iy.device.type == "cpu":
+        return bin_rgbelev_plain_int(grid, iy, ix, img_chw, elev, compute)
+    raise ValueError(f"K1 runs on cuda (kernel) or cpu (plain); got {iy.device}")
 
 
 def bin_rgbelev_from_indices(grid: GridSpec, iy, ix, img_chw, elev,
@@ -137,10 +191,13 @@ def bin_rgbelev_from_indices(grid: GridSpec, iy, ix, img_chw, elev,
     CUDA tensors go to the K1 kernel; CPU tensors to its plain version,
     :func:`bin_rgbelev_plain`. Any other device raises.
 
-    :param iy, ix: (h, w) int32 grid row/col per sample; -1 = invalid
-        (samples outside the grid contribute nothing either)
-    :param img_chw: (3, h, w) float32, integer-valued 0..255 ('uint8' contract)
-    :param elev: (h, w) float32 elevation in degrees; NaN (at valid coords)
+    :param iy, ix: (n, w) int32 grid row/col per sample (one frame, or a
+        burst of frames stacked along the rows); -1 = invalid (samples
+        outside the grid contribute nothing either). Fewer than 2^32
+        samples, and at most :data:`MAX_CELL_COUNT` in any one cell.
+    :param img_chw: (3, n, w) float32, integer-valued 0..255 ('uint8'
+        contract)
+    :param elev: (n, w) float32 elevation in degrees; NaN (at valid coords)
         contributes 0
     :param compute: 'bf16' (K1; the JAX package's name for its default
         mode) or 'i8' (K1-i8: the elevation of each sample floor-quantized
@@ -150,13 +207,8 @@ def bin_rgbelev_from_indices(grid: GridSpec, iy, ix, img_chw, elev,
         2^-31 ('bf16') or below 2^-16 ('i8') per sample of the exact sum,
         then rounded once to float32.
     """
-    _check_compute(compute)
-    if iy.device.type == "cuda":
-        _check_inputs(grid, iy, ix, img_chw, elev)
-        return _bin_rgbelev_cuda(grid, iy, ix, img_chw, elev, compute)
-    if iy.device.type == "cpu":
-        return bin_rgbelev_plain(grid, iy, ix, img_chw, elev, compute)
-    raise ValueError(f"K1 runs on cuda (kernel) or cpu (plain); got {iy.device}")
+    return finish_int_sums(grid, *bin_rgbelev_int(grid, iy, ix, img_chw,
+                                                  elev, compute), compute)
 
 
 def split_bin_indices(grid, flat, valid):
@@ -187,17 +239,20 @@ def bin_mean_rgbelev(grid: GridSpec, lats, lons, data):
     return count, finalize_mean(count, sums)
 
 
-def georegrid_inputs(grid: GridSpec, dyn: DynGeorefParams, h, w, mask=None):
+def georegrid_inputs(grid: GridSpec, dyn: DynGeorefParams, h, w, mask=None,
+                     row0=0):
     """The georeference half of :func:`georegrid_partial`: per-pixel
     (iy, ix) bin indices and the georef outputs (lat, lon, elevation) of
-    an (h, w) frame, in float32 on ``dyn``'s device.
+    ``h`` rows of a ``w``-wide frame, starting at row ``row0`` (a row block
+    of a frame; 0 and the frame's height for the whole frame), in float32
+    on ``dyn``'s device.
 
     :param mask: optional (h, w) bool, True = exclude pixel
     """
     dev = dyn.cd.device
     f32 = torch.float32
     px = torch.arange(w, dtype=f32, device=dev)[None, :].expand(h, w)
-    py = torch.arange(h, dtype=f32, device=dev)[:, None].expand(h, w)
+    py = torch.arange(row0, row0 + h, dtype=f32, device=dev)[:, None].expand(h, w)
     out = georef_latlon_dyn(dyn, px, py, dtype=f32, with_elevation=True)
     flat, valid = bin_indices(grid, out["lat"], out["lon"])
     if mask is not None:

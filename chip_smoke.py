@@ -34,7 +34,27 @@ them:
    CPU; then K3's and K1-i8's entry points on the same frame;
 9. times: each new kernel against its plain version (CUDA events), and
    ``create_mapping`` and ``resample`` wall time split into device and
-   host time.
+   host time;
+10. K1 on an 8-frame burst of the real sequence ISS029-E-8493..8500
+    (tests/resources/seq/, 4256x2832 each, stacked to 22656x4256) into the
+    band-padded global 0.05 deg grid (3600x7199): bit-equal to its plain
+    version, and timed against it;
+11. the sequence-mosaic path: ``mosaic_sequence(batch=8)`` on a world of one
+    over the 10 frames of that sequence (seeded uint8 images), onto the
+    global 0.05 deg grid — two bursts, the second padded with null frames —
+    with the launch counters zeroed just before and read just after: K1
+    must have launched, the count total must equal the frames' valid
+    samples, and the result must be bit-equal to the same sequence through
+    K1's plain version and to one step of all 10 frames; a
+    ``min_elevation=10`` run must count the valid samples at >= 10 deg;
+12. ``cli.convert.convert_mosaic`` on the card with an in-memory provider
+    of those frames, writing a CDF of the global 0.25 deg mosaic: its
+    printed occupied cells equal ``mosaic_sequence``'s and the file's;
+13. times: the grid-sharded step on an 8-frame burst of the main frame
+    (539x524 grid) against the same step with K1's plain version (CUDA
+    events), ``mosaic_sequence`` over 100 jittered frames from a
+    device-resident 8-frame buffer (wall clock ending in a synchronize),
+    and the step on the global 0.05 deg grid with 4 frames, in ms/frame.
 
 Prints one line per phase, then a JSON line of per-kernel results, and
 as the last line ``{"ok": true, "device": {...}}``. Any failure raises and
@@ -54,10 +74,15 @@ SEED = 0
 N_FRAMES = 3  # main-path requests; the last one is masked
 N_TIMED = 20  # timed repetitions per measurement
 N_WALL = 3  # timed repetitions of the slice's host-inclusive wall times
+N_BURST_TIMED = 5  # timed repetitions per burst-sized measurement
+N_SEQ = 100  # frames of the timed sequence (burst100)
 RES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
                    "resources")
 GOLDEN = os.path.join(RES, "golden_georef_ISS030-E-102170_dc.npz")
 GOLDEN_RESAMPLE = os.path.join(RES, "golden_resample_ISS030-E-102170_dc.npz")
+SEQ_WCS = [os.path.join(RES, "seq", f"ISS029-E-{n}.wcs")
+           for n in range(8493, 8503)]
+GLOBAL_005 = (20, -89.999, 89.999, -179.999, 179.999)  # 0.05 deg, 3599x7199
 
 
 def card_line():
@@ -106,13 +131,13 @@ def check_equal(torch, name, got, want):
     return max((a - b).abs().max().item() for a, b in zip(got, want))
 
 
-def in_turns(torch, kernel, plain):
+def in_turns(torch, kernel, plain, reps=N_TIMED):
     """Median CUDA-event ms of kernel and plain, measured plain, kernel,
     kernel, plain on one card; then each side's runs."""
     kernel(), plain()
     runs = {kernel: [], plain: []}
     for f in (plain, kernel, kernel, plain):
-        runs[f].append(cuda_ms(torch, f, N_TIMED))
+        runs[f].append(cuda_ms(torch, f, reps))
     return (statistics.median(runs[kernel]), statistics.median(runs[plain]),
             runs[kernel], runs[plain])
 
@@ -418,6 +443,248 @@ def slice_phases(torch, np, builds, grid, iy, ix, out, card):
     ]
 
 
+def seq_frames(np):
+    """The 10 real calibrations of SEQ_WCS (GeorefParams, photo times) and
+    seeded uint8 images (10, 2832, 4256, 3) on the host."""
+    from auromat_tpu_torch.coordinates.wcs import TanWcs
+    from auromat_tpu_torch.io import fits
+    from auromat_tpu_torch.mapping.spacecraft import resolve_camera_position
+    from auromat_tpu_torch.ops.georef import GeorefParams
+
+    params, times = [], []
+    for path in SEQ_WCS:
+        header = fits.read_header(path)
+        pos, t, _ = resolve_camera_position(header)
+        params.append(GeorefParams.from_wcs(TanWcs(header), pos, t, 110.0))
+        times.append(t)
+    h, w = params[0].height, params[0].width
+    imgs = np.random.default_rng(SEED).integers(
+        0, 256, (len(params), h, w, 3), dtype=np.uint8)
+    return params, times, imgs
+
+
+def check_equal_all(torch, name, got, want):
+    """Raise unless every tensor pair is bit-equal (NaN == NaN)."""
+    for i, (a, b) in enumerate(zip(got, want)):
+        if not torch.equal(a.nan_to_num(-1.0), b.nan_to_num(-1.0)):
+            raise AssertionError(f"{name}: output {i} differs")
+
+
+def mosaic_phases(torch, np, card):
+    """Phases 10-13: K1 on a frame burst, the sequence-mosaic path on the
+    card, ``convert --mosaic`` and the burst/sequence/config-5 times;
+    returns the kernels-line row of K1 on the mosaic path."""
+    import contextlib
+    import dataclasses
+    import io
+    import re
+    import tempfile
+
+    from auromat_tpu_torch.cli import convert
+    from auromat_tpu_torch.entry import frame_setup
+    from auromat_tpu_torch.io import cdflib
+    from auromat_tpu_torch.ops import _kernels
+    from auromat_tpu_torch.ops.georef import DynGeorefParams
+    from auromat_tpu_torch.ops.georegrid import (bin_rgbelev_int,
+                                                 bin_rgbelev_plain_int,
+                                                 georegrid_inputs)
+    from auromat_tpu_torch.ops.regrid import fixed_grid, round_up
+    from auromat_tpu_torch.parallel import (make_grid_sharded_mosaic_step,
+                                            make_mesh, mosaic_sequence)
+
+    dev = torch.device("cuda")
+    k1 = _kernels.GEOREGRID_BIN
+    all_kernels = (k1, _kernels.GEOREGRID_BIN_I8, _kernels.REGRID_BIN,
+                   _kernels.REGRID_BIN_V1)
+    params, times, imgs = seq_frames(np)
+    n_seq, h, w = imgs.shape[:3]
+    g5 = fixed_grid(*GLOBAL_005)
+    mesh = make_mesh(device=dev)
+
+    # -- 10. K1 on an 8-frame stacked burst ---------------------------------
+    g5_pad = dataclasses.replace(g5, n_lat=round_up(g5.n_lat, 8))
+    dyn = DynGeorefParams.stack(params[:8], device=dev)
+    parts = [georegrid_inputs(g5, dyn.frame(i), h, w) for i in range(8)]
+    iy8 = torch.cat([p[0] for p in parts])
+    ix8 = torch.cat([p[1] for p in parts])
+    el8 = torch.cat([p[2]["elevation"] for p in parts])
+    del parts
+    img8 = torch.from_numpy(imgs[:8]).to(dev).permute(3, 0, 1, 2).reshape(
+        3, 8 * h, w).float().contiguous()
+    got = bin_rgbelev_int(g5_pad, iy8, ix8, img8, el8)
+    want = bin_rgbelev_plain_int(g5_pad, iy8, ix8, img8, el8)
+    torch.cuda.synchronize()
+    for what, a, b in zip(("count/RGB", "elevation"), got, want):
+        if not torch.equal(a, b):
+            raise AssertionError(f"K1 on the 8-frame burst != plain on {what}")
+    burst_err = max(float((a - b).abs().max().item()) for a, b in zip(got, want))
+    n_valid8 = int((iy8 >= 0).sum().item())
+    if int(got[0][:, 0].sum().item()) != n_valid8 or n_valid8 == 0:
+        raise AssertionError("K1 on the burst: count total != valid samples")
+    print(f"[10] K1 on an 8-frame burst ({8 * h}x{w} samples, "
+          f"{8 * h * w * 255 / 2 ** 32:.1f}x the old 2^32/255 bound) -> "
+          f"{g5_pad.n_lat}x{g5_pad.n_lon}: == plain (torch.equal, integer "
+          f"sums), {n_valid8} valid samples", flush=True)
+    k1b_ms, k1b_plain, _, _ = in_turns(
+        torch, lambda: bin_rgbelev_int(g5_pad, iy8, ix8, img8, el8),
+        lambda: bin_rgbelev_plain_int(g5_pad, iy8, ix8, img8, el8),
+        N_BURST_TIMED)
+    # what the burst repair adds to each call: one max over the counts
+    # and its host sync
+    check_ms = cuda_ms(torch, lambda: int(got[0][:, 0].max().item()), N_TIMED)
+    print(f"[10] K1 on the 8-frame burst: {k1b_ms:.3f} ms vs plain "
+          f"{k1b_plain:.3f} ms (integer sums, with the cell-count check: "
+          f"{check_ms:.3f} ms of it); on {card}", flush=True)
+    del iy8, ix8, el8, img8, got, want
+
+    # -- 11. the sequence-mosaic path -----------------------------------------
+    n_valid = n_high = 0
+    for p in params:
+        iy, _, out = georegrid_inputs(
+            g5, DynGeorefParams.from_static(p, dev, torch.float32), h, w)
+        n_valid += int((iy >= 0).sum().item())
+        n_high += int(((iy >= 0) & (out["elevation"] >= 10.0)).sum().item())
+        del iy, out
+    bursts = [(params, imgs)]
+    for k in all_kernels:
+        k.launches = 0
+    count, means = mosaic_sequence(mesh, g5, bursts, batch=8,
+                                   bin_method="pallas")
+    torch.cuda.synchronize()
+    seq_launches = k1.launches
+    if seq_launches < 1:
+        raise AssertionError("the sequence-mosaic path never launched K1")
+    if tuple(count.shape) != (g5_pad.n_lat, g5.n_lon) or \
+            tuple(means.shape) != (g5_pad.n_lat, g5.n_lon, 4):
+        raise AssertionError(f"mosaic shapes {tuple(count.shape)} "
+                             f"{tuple(means.shape)}")
+    total = int(count.sum(dtype=torch.float64).item())  # > 2^24: not in f32
+    if total != n_valid:
+        raise AssertionError(f"mosaic count {total} != {n_valid} valid samples")
+    filled = count > 0
+    if not torch.isfinite(means[filled]).all() or \
+            not torch.isnan(means[~filled]).all():
+        raise AssertionError("mosaic means not finite exactly where filled")
+    plain = mosaic_sequence(mesh, g5, bursts, batch=8,
+                            bin_method="pallas_plain")
+    check_equal_all(torch, "mosaic vs plain binning", (count, means), plain)
+    one = mosaic_sequence(mesh, g5, bursts, batch=n_seq)
+    check_equal_all(torch, "2 bursts vs one step", (count, means), one)
+    masked, _ = mosaic_sequence(mesh, g5, bursts, batch=8, min_elevation=10.0)
+    n_masked = int(masked.sum(dtype=torch.float64).item())
+    if n_masked != n_high:
+        raise AssertionError(f"min_elevation=10: {n_masked} != {n_high}")
+    print(f"[11] mosaic_sequence(batch=8) of {n_seq} frames "
+          f"({os.path.basename(SEQ_WCS[0])}..) -> {g5.n_lat}x{g5.n_lon}: "
+          f"{seq_launches} launches of K1, {total} samples into "
+          f"{int(filled.sum().item())} cells (= the frames' valid samples), "
+          f"== plain binning, == one 10-frame step (bit-equal, elevation "
+          f"too); min_elevation=10: {n_high} samples", flush=True)
+    del count, means, plain, one, masked
+
+    # -- 12. convert --mosaic on the card ---------------------------------------
+    class SeqProvider:
+        altitude = 110.0
+
+        def timeRange(self, dateBegin=None, dateEnd=None):
+            return times[0], times[-1]
+
+        def iterParamBursts(self, dateBegin=None, dateEnd=None, batch=8):
+            for i in range(0, n_seq, batch):
+                yield params[i:i + batch], imgs[i:i + batch]
+
+    with tempfile.TemporaryDirectory() as tmp:
+        folder = os.path.join(tmp, "ISS029-E-8493-8502")
+        args = convert.build_parser().parse_args(
+            [folder, "--mosaic", "0.25", "--format", "cdf", "--out", tmp,
+             "--platform", "cuda"])
+        device = convert.platform_device(args.platform)
+        for k in all_kernels:
+            k.launches = 0
+        log = io.StringIO()
+        with contextlib.redirect_stdout(log):
+            path = convert.convert_mosaic(SeqProvider(), args, tmp, device)
+        torch.cuda.synchronize()
+        cli_launches = k1.launches
+        m = re.search(r"\((\d+) occupied cells\)", log.getvalue())
+        if path is None or m is None or cli_launches < 1:
+            raise AssertionError(f"convert_mosaic: {log.getvalue()!r}, "
+                                 f"{cli_launches} K1 launches")
+        g25 = fixed_grid(4, -89.999, 89.999, -179.999, 179.999)
+        c25, _ = mosaic_sequence(mesh, g25, SeqProvider().iterParamBursts(),
+                                 batch=8)
+        occupied = int((c25[:g25.n_lat] > 0).sum().item())
+        red = cdflib.CDFReader(path)["img_red"]
+        in_file = int((np.asarray(red[0]) != red.attrs["FILLVAL"]).sum())
+        if not int(m.group(1)) == occupied == in_file:
+            raise AssertionError(f"convert_mosaic: {m.group(1)} occupied cells "
+                                 f"printed, {occupied} in the mosaic, "
+                                 f"{in_file} in the file")
+        size = os.path.getsize(path)
+    print(f"[12] convert_mosaic on {device} ({g25.n_lat}x{g25.n_lon}, "
+          f"{cli_launches} K1 launches): {occupied} occupied cells printed "
+          f"== mosaic_sequence's == the CDF's ({size} bytes)", flush=True)
+
+    # -- 13. times -------------------------------------------------------------
+    grid, _, p0 = frame_setup(dev)
+    h0, w0 = p0.height, p0.width
+    frame = torch.from_numpy(np.random.default_rng(SEED).integers(
+        0, 256, (1, h0, w0, 3), dtype=np.uint8)).to(dev)
+    imgs8 = frame.expand(8, -1, -1, -1).contiguous()
+    dyn8 = DynGeorefParams.stack([p0] * 8, device=dev)
+    step8, plain8 = (make_grid_sharded_mosaic_step(mesh, grid, h0, w0,
+                                                   bin_method=b)
+                     for b in ("pallas", "pallas_plain"))
+    check_equal_all(torch, "burst8 step vs plain", step8(dyn8, imgs8),
+                    plain8(dyn8, imgs8))
+    b8_ms, b8_plain, b8_runs, _ = in_turns(
+        torch, lambda: step8(dyn8, imgs8), lambda: plain8(dyn8, imgs8),
+        N_BURST_TIMED)
+    print(f"[13] burst8 (grid-sharded step, B=8, {h0}x{w0} -> "
+          f"{grid.n_lat}x{grid.n_lon}): {b8_ms / 8:.3f} ms/frame (plain "
+          f"binning {b8_plain / 8:.3f} ms/frame; step runs "
+          f"{[round(t, 3) for t in b8_runs]} ms); on {card}", flush=True)
+
+    rng = np.random.default_rng(SEED)
+    base = np.asarray(p0.camera_pos)
+    p100 = [dataclasses.replace(p0, camera_pos=tuple(
+        base * (1.0 + 1e-4 * rng.standard_normal(3)))) for _ in range(N_SEQ)]
+
+    def run100():
+        chunks = ((p100[i:i + 8], imgs8[:len(p100[i:i + 8])])
+                  for i in range(0, N_SEQ, 8))
+        return mosaic_sequence(mesh, grid, chunks, batch=8)
+
+    c100, _ = run100()
+    if int(c100.sum().item()) <= 0:
+        raise AssertionError("burst100: nothing binned")
+    seq_ms = wall_ms(torch, run100, N_WALL)
+    print(f"[13] burst100 (mosaic_sequence, {N_SEQ} jittered frames, "
+          f"device-resident 8-frame buffer): {seq_ms / N_SEQ:.3f} ms/frame "
+          f"wall ({seq_ms:.1f} ms); on {card}", flush=True)
+
+    dyn4 = DynGeorefParams.stack([p0] * 4, device=dev)
+    imgs4 = imgs8[:4]
+    step5 = make_grid_sharded_mosaic_step(mesh, g5, h0, w0,
+                                          bin_method="pallas")
+    c5, _ = step5(dyn4, imgs4)
+    if int(c5.sum().item()) <= 0:
+        raise AssertionError("config5: nothing binned")
+    torch.cuda.reset_peak_memory_stats()
+    c5_ms = cuda_ms(torch, lambda: step5(dyn4, imgs4), N_BURST_TIMED)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"[13] config5 (grid-sharded step, B=4, {h0}x{w0} -> "
+          f"{g5.n_lat}x{g5.n_lon}): {c5_ms / 4:.3f} ms/frame; peak device "
+          f"memory {peak:.2f} GiB; on {card}", flush=True)
+
+    return {"name": "georegrid_bin (K1) on the mosaic path, 8-frame burst",
+            "route": "cuda",
+            "source": "auromat_tpu_torch/ops/csrc/georegrid_bin.cu",
+            "replaces": "auromat_tpu/ops/georegrid.py:65",
+            "launches": seq_launches, "max_abs_err": burst_err,
+            "ms": k1b_ms, "plain_ms": k1b_plain}
+
+
 def main():
     import torch
 
@@ -579,6 +846,7 @@ def main():
         "launches": launches["K1"], "max_abs_err": k1_err,
         "ms": k1_ms, "plain_ms": plain_ms}]
     rows += slice_phases(torch, np, builds, grid, iy, ix, out, card)
+    rows.append(mosaic_phases(torch, np, card))
 
     print(card)
     print(json.dumps({"kernels": rows}))

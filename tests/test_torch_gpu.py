@@ -21,6 +21,12 @@ only the port is installed:
 * ``resample`` on the card (the K1 and K2 routes) against ``resample`` on
   the CPU for the same mapping: masks equal, uint8 within one step on at
   most 0.1% of the cells (the K1/K2 routes divide in float32).
+* K1 on an 8-frame stacked burst of the 12 MP frame (above the old
+  h*w*255 < 2^32 bound) bit-equal to its plain version; a cell past the
+  uint32 bound raises after the kernel, 2^32 samples before it.
+* The grid-sharded mosaic step on the card: K1 == its plain version bit
+  for bit, one launch per burst, and the CPU's result within the bounds
+  above.
 """
 
 import os
@@ -44,23 +50,27 @@ RES = os.path.join(os.path.dirname(__file__), "resources")
 GRID = fixed_grid((36, 25), 47.0, 62.0, -112.0, -91.0)
 
 
-def small_dyn(device, w=128, h=96):
-    """The real ISS030-E-102170 calibration scaled down to (h, w) pixels,
-    as float32 on ``device`` (the port's twin of
-    tests/test_georegrid.py::small_params)."""
+def small_params(w=128, h=96):
+    """The real ISS030-E-102170 calibration scaled down to (h, w) pixels
+    (the port's twin of tests/test_georegrid.py::small_params)."""
     header = fits.read_header(os.path.join(RES, "ISS030-E-102170_dc.wcs"))
     base = GeorefParams.from_wcs(
         TanWcs(header), fits.get_shifted_spacecraft_position(header)[:3],
         fits.get_photo_time(header), altitude=110.0)
     scale = base.width / w
-    p = GeorefParams(
+    return GeorefParams(
         width=w, height=h,
         cd=tuple(tuple(v * scale for v in row) for row in base.cd),
         px_ref=base.px_ref / scale, py_ref=base.py_ref / scale,
         rotmat=base.rotmat, camera_pos=base.camera_pos,
         altitude=base.altitude, mat_j2000_to_geo=base.mat_j2000_to_geo,
         mat_j2000_to_sm=base.mat_j2000_to_sm)
-    return DynGeorefParams.from_static(p, device, torch.float32), h, w
+
+
+def small_dyn(device, w=128, h=96):
+    """:func:`small_params` as float32 on ``device``."""
+    return DynGeorefParams.from_static(small_params(w, h), device,
+                                       torch.float32), h, w
 
 
 @pytest.fixture
@@ -269,3 +279,77 @@ def test_resample_gpu_matches_cpu(cuda):
         assert d.max() <= 1 and (d == 1).mean() < 1e-3
         e = np.abs(got.elevation.data - want.elevation.data)[ok[..., 0]]
         assert e.max() < 1e-4
+
+
+@pytest.mark.gpu
+def test_k1_kernel_matches_plain_8_frame_burst(full_frame):
+    grid, iy, ix, _, _, elev = full_frame
+    n = 8
+    iy8, ix8 = iy.repeat(n, 1), ix.repeat(n, 1)
+    g = torch.Generator(device="cuda").manual_seed(11)
+    img = torch.floor(torch.rand((3,) + tuple(iy8.shape), generator=g,
+                                 device="cuda") * 256)
+    el8 = elev.repeat(n, 1)
+    assert iy8.numel() * 255 >= 2 ** 32
+    before = _kernels.GEOREGRID_BIN.launches
+    kc, ks = bin_rgbelev_from_indices(grid, iy8, ix8, img, el8)
+    pc, ps = bin_rgbelev_plain(grid, iy8, ix8, img, el8)
+    torch.cuda.synchronize()
+    assert _kernels.GEOREGRID_BIN.launches == before + 1
+    assert torch.equal(kc, pc) and torch.equal(ks, ps)
+    assert kc.sum().item() == n * (iy >= 0).sum().item()
+
+
+@pytest.mark.gpu
+def test_k1_refuses_what_could_wrap_on_cuda(cuda):
+    from auromat_tpu_torch.ops.georegrid import MAX_CELL_COUNT
+
+    g = fixed_grid((2.0, 1.0), 0.05, 19.95, 0.5, 129.5)
+    n = MAX_CELL_COUNT + 1
+    iy = torch.zeros((n // 2, 2), dtype=torch.int32, device=cuda)
+    img = torch.full((3, n // 2, 2), 255.0, device=cuda)
+    elev = torch.zeros((n // 2, 2), device=cuda)
+    with pytest.raises(ValueError, match="overflow"):
+        bin_rgbelev_from_indices(g, iy, iy, img, elev)
+    big = torch.zeros(1, 1, dtype=torch.int32, device=cuda).expand(2 ** 16,
+                                                                   2 ** 16)
+    before = _kernels.GEOREGRID_BIN.launches
+    with pytest.raises(ValueError, match="overflow"):
+        bin_rgbelev_from_indices(
+            g, big, big, torch.zeros(1, 1, 1, device=cuda).expand(3, 2 ** 16, 2 ** 16),
+            torch.zeros(1, 1, device=cuda).expand(2 ** 16, 2 ** 16))
+    assert _kernels.GEOREGRID_BIN.launches == before
+
+
+@pytest.mark.gpu
+def test_grid_sharded_step_on_cuda(cuda):
+    import dataclasses
+
+    from auromat_tpu_torch.parallel import (make_grid_sharded_mosaic_step,
+                                            make_mesh)
+
+    p = small_params()
+    h, w = p.height, p.width
+    params = [dataclasses.replace(p, camera_pos=tuple(
+        c + 5.0 * i for c in p.camera_pos)) for i in range(3)]
+    imgs = np.random.default_rng(4).integers(0, 256, (3, h, w, 3), np.uint8)
+    grid = fixed_grid(2, -89.0, 89.0, -179.0, 179.0)
+    out = {}
+    for dev in ("cpu", cuda):
+        mesh = make_mesh(device=dev)
+        d = DynGeorefParams.stack(params, device=dev)
+        for b in ("pallas", "pallas_plain"):
+            before = _kernels.GEOREGRID_BIN.launches
+            out[str(dev), b] = [t.cpu().numpy() for t in
+                                make_grid_sharded_mosaic_step(
+                                    mesh, grid, h, w, bin_method=b)(d, imgs)]
+            launched = _kernels.GEOREGRID_BIN.launches - before
+            assert launched == (1 if (dev != "cpu" and b == "pallas") else 0)
+    (c, m), (pc, pm) = out["cuda", "pallas"], out["cuda", "pallas_plain"]
+    assert np.array_equal(c, pc) and np.array_equal(m, pm, equal_nan=True)
+    cc, cm = out["cpu", "pallas"]
+    assert c.sum() > 1000 and c.sum() == cc.sum()
+    d = c - cc
+    assert np.abs(d).max() <= 1 and (d != 0).mean() < 1e-2
+    ok = ((d == 0) & (c > 0))[..., None] & ~np.isnan(cm)
+    assert_allclose(m[ok], cm[ok], rtol=1e-3, atol=0.05)
