@@ -42,7 +42,7 @@ def detect_source_type(folder):
 
 
 def make_provider(source_type, folder, altitude, fast_center=True,
-                  device="cpu"):
+                  device="cuda"):
     if source_type == "spacecraft":
         from auromat_tpu_torch.mapping.spacecraft import \
             SpacecraftMappingProvider
@@ -93,11 +93,9 @@ def build_parser():
                       metavar=("S", "N", "W", "E"),
                       help="restrict the --mosaic grid to this lat/lon box "
                            "(default: global)")
-    proc.add_argument("--platform", choices=["cpu", "cuda", "default"],
-                      default="cpu",
-                      help="where to compute: cpu (default), cuda (fails "
-                           "without a CUDA device) or default (cuda if "
-                           "torch finds one, else cpu)")
+    proc.add_argument("--platform", choices=["cuda", "cpu"], default="cuda",
+                      help="where to compute: cuda (default; fails without "
+                           "a CUDA device) or cpu")
 
     out = p.add_argument_group("output")
     out.add_argument("--format", choices=["cdf", "netcdf"], default="cdf")
@@ -118,8 +116,6 @@ def platform_device(platform):
     from auromat_tpu_torch.ops.georef import compute_device
     from auromat_tpu_torch.parallel.distributed import local_device
 
-    if platform == "default":
-        platform = "cuda" if torch.cuda.is_available() else "cpu"
     return compute_device(local_device(platform))
 
 
@@ -131,7 +127,7 @@ def _writer(fmt):
     return writer
 
 
-def convert_mapping(mapping, args, out_folder, device="cpu"):
+def convert_mapping(mapping, args, out_folder, device="cuda"):
     from auromat_tpu_torch.resample import resample
 
     # skip-existing BEFORE the expensive mask+resample (the identifier is
@@ -156,7 +152,7 @@ def convert_mapping(mapping, args, out_folder, device="cpu"):
     return out_path
 
 
-def convert_mosaic(provider, args, out_folder, device="cpu"):
+def convert_mosaic(provider, args, out_folder, device="cuda"):
     """Stream the whole sequence through the grid-sharded mosaic
     (parallel.mosaic_sequence, K1 binning) and write ONE file (rank 0).
 

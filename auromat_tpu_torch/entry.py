@@ -167,7 +167,7 @@ def _dryrun_rank(rank, n, init_method, out_dir, timeout):
     dist.init_process_group("gloo", init_method=init_method, rank=rank,
                             world_size=n, timeout=timedelta(seconds=timeout))
     try:
-        mesh = make_mesh()
+        mesh = make_mesh(device="cpu")
         res = _dryrun_results(mesh, *factorise(n))
         if rank == 0:
             np.savez(os.path.join(out_dir, "rank0.npz"), **res)
@@ -233,7 +233,7 @@ def dryrun_multichip(n_devices: int):
                                f"{failed} failed; rank {failed[0]}:\n{log}")
         with np.load(os.path.join(tmp, "rank0.npz")) as z:
             got = dict(z)
-    want = _dryrun_results(make_mesh(), dp, sp)
+    want = _dryrun_results(make_mesh(device="cpu"), dp, sp)
     for k, v in want.items():
         if not np.array_equal(got[k], v, equal_nan=True):
             raise AssertionError(f"dryrun_multichip({n_devices}): {k} != "

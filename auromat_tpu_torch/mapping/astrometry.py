@@ -33,7 +33,7 @@ class AstrometryMapping(Mapping):
 def create_mapping(wcs_header, img, camera_pos, photo_time: datetime,
                    altitude=110.0, identifier=None, metadata=None,
                    fast_center=True, with_mlatmlt=True, dtype=torch.float64,
-                   frame_matrices=None, device="cpu") -> AstrometryMapping:
+                   frame_matrices=None, device="cuda") -> AstrometryMapping:
     """Georeference an image with a WCS solution into a Mapping.
 
     :param wcs_header: FITS header dict (astrometry.net .wcs solution)
@@ -44,8 +44,9 @@ def create_mapping(wcs_header, img, camera_pos, photo_time: datetime,
         hold by construction
     :param dtype: torch dtype of the per-pixel chain (float64 for the
         reference's precision); ``"df64"`` is float64
-    :param device: where the per-pixel chain runs; the mapping's arrays
-        are host numpy float64 whatever the device
+    :param device: where the per-pixel chain runs (the card by default;
+        pass ``device="cpu"`` for the CPU); the mapping's arrays are host
+        numpy float64 whatever the device
     """
     img = np.asarray(img)
     h, w = img.shape[0], img.shape[1]

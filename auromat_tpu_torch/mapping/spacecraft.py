@@ -33,7 +33,7 @@ from auromat_tpu_torch.mapping.astrometry import (AstrometryMapping,
                                                   create_mapping)
 from auromat_tpu_torch.mapping.mapping import BaseMappingProvider
 from auromat_tpu_torch.ops.georef import (DynGeorefParams, GeorefParams,
-                                          georeference_dyn)
+                                          compute_device, georeference_dyn)
 
 IMAGE_EXTENSIONS = (".jpg", ".jpeg", ".png", ".tif", ".tiff")
 
@@ -66,9 +66,11 @@ def resolve_camera_position(header, tle_path=None, spacetrack=None):
 
 def get_mapping(image_path, wcs_path, altitude=110.0, identifier=None,
                 fast_center=False, tle_path=None, metadata=None, dtype=None,
-                device="cpu"):
-    """Georeference one image + .wcs pair on ``device`` (reference
-    spacecraft.py:380-426). Reading the image needs PIL."""
+                device="cuda"):
+    """Georeference one image + .wcs pair on ``device`` (the card by
+    default; reference spacecraft.py:380-426). Reading the image needs
+    PIL."""
+    device = compute_device(device)
     header = fits.read_header(wcs_path)
     pos, photo_time, _ = resolve_camera_position(header, tle_path)
     img = load_image(image_path)
@@ -88,12 +90,13 @@ class SpacecraftMappingProvider(BaseMappingProvider):
     Reference: auromat/mapping/spacecraft.py:40-146.
 
     :param dtype: torch dtype of the per-frame chain (None: float64)
-    :param device: where frames are georeferenced
+    :param device: where frames are georeferenced (the card by default;
+        pass ``device="cpu"`` for the CPU)
     """
 
     def __init__(self, image_dir, wcs_dir=None, tle_path=None, altitude=110.0,
                  fast_center=False, maxTimeOffset=3, dtype=None,
-                 device="cpu"):
+                 device="cuda"):
         super().__init__(maxTimeOffset)
         self.image_dir = image_dir
         self.wcs_dir = wcs_dir or image_dir
@@ -101,7 +104,7 @@ class SpacecraftMappingProvider(BaseMappingProvider):
         self.altitude = altitude
         self.fast_center = fast_center
         self.dtype = dtype
-        self.device = device
+        self.device = compute_device(device)
         self._index = None
 
     def _build_index(self):
@@ -273,8 +276,9 @@ def _load_frame_calibration(image_path, wcs_path, altitude=110.0,
 
 def get_mapping_batch(image_wcs_pairs, altitude=110.0, tle_path=None,
                       identifiers=None, with_mlatmlt=True, fast_center=True,
-                      device="cpu"):
-    """Georeference a burst of same-shaped frames on ``device``.
+                      device="cuda"):
+    """Georeference a burst of same-shaped frames on ``device`` (the card
+    by default).
 
     The burst's calibration stacks into one DynGeorefParams (one transfer)
     and each frame runs the full georeference chain in float32 (adequate
@@ -284,6 +288,7 @@ def get_mapping_batch(image_wcs_pairs, altitude=110.0, tle_path=None,
         share the image shape
     :returns: list of AstrometryMapping
     """
+    device = compute_device(device)
     loaded = [_load_frame_calibration(image_path, wcs_path, altitude,
                                       tle_path, full=True)
               for image_path, wcs_path in image_wcs_pairs]

@@ -3,10 +3,10 @@
 Each kernel source is compiled at first use with ``nvcc`` into a shared
 library with a plain C interface (no PyTorch headers, so a build takes
 seconds) and loaded with ``ctypes``. The library lands in
-``auromat_tpu_torch/_build/``, named by a hash of the source and the
-compiler flags, so an edited source is rebuilt and an unchanged one is
-loaded as it is. Nothing is built when this module is imported, and a
-failed build raises.
+``auromat_tpu_torch/_build/``, named by a hash of the source, of every
+shared header (``csrc/*.cuh``) and of the compiler flags, so an edited
+source or header is rebuilt and an unchanged one is loaded as it is.
+Nothing is built when this module is imported, and a failed build raises.
 
 Each :class:`CudaKernel` counts its launches in ``launches``: one per
 successful launch, so a run can show that its path went through the kernel.
@@ -78,8 +78,11 @@ class CudaKernel:
             return self.path
 
     def _lib_path(self):
-        with open(os.path.join(_CSRC, self.source), "rb") as f:
-            digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+        digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+        headers = sorted(f for f in os.listdir(_CSRC) if f.endswith(".cuh"))
+        for name in [self.source] + headers:
+            with open(os.path.join(_CSRC, name), "rb") as f:
+                digest.update(name.encode() + b"\0" + f.read())
         stem = os.path.splitext(self.source)[0]
         return os.path.join(_BUILD, f"lib{stem}-{digest.hexdigest()[:16]}.so")
 
@@ -117,7 +120,7 @@ class CudaKernel:
 _P = ctypes.c_void_p
 
 _K1_ARGS = [_P, _P, _P, _P, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-            _P, _P, _P]
+            ctypes.c_int, _P, _P, _P, _P, _P, _P]
 # K1 and K1-i8 (ops/georegrid.py::bin_rgbelev_from_indices, compute='bf16'
 # and compute='i8'): one source, one kernel template, two entry points
 GEOREGRID_BIN = CudaKernel("georegrid_bin.cu", "georegrid_bin_launch", _K1_ARGS)
@@ -125,7 +128,8 @@ GEOREGRID_BIN_I8 = CudaKernel("georegrid_bin.cu", "georegrid_bin_i8_launch",
                               _K1_ARGS)
 
 _K2_ARGS = [_P, _P, _P, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, _P, _P]
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, _P, _P,
+            _P, _P, _P]
 # K2 (ops/regrid_pallas.py::bin_partial_pallas_cw and the functions built on
 # it) and K3 (ops/regrid_pallas.py::bin_partial_pallas): one kernel, counted
 # per entry point

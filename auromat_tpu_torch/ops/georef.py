@@ -89,27 +89,30 @@ class DynGeorefParams(NamedTuple):
     mat_j2000_to_sm: torch.Tensor  # (3, 3)
 
     @staticmethod
-    def from_static(p: GeorefParams, device="cpu", dtype=torch.float64):
+    def from_static(p: GeorefParams, device, dtype=torch.float64):
+        """``p`` as tensors on ``device`` (required: 'cpu' or a CUDA
+        device; CUDA raises without a card)."""
         return dyn_params_from_numpy(
             {f: np.asarray(getattr(p, f), dtype=np.float64)
-             for f in DynGeorefParams._fields}, device, dtype)
+             for f in DynGeorefParams._fields}, compute_device(device), dtype)
 
     def to(self, device, dtype):
         return DynGeorefParams(*(v.to(device=device, dtype=dtype)
                                  for v in self))
 
     @staticmethod
-    def stack(params_list, dtype=torch.float32, device="cpu"):
+    def stack(params_list, dtype=torch.float32, *, device):
         """Stack per-frame calibration (a list of :class:`GeorefParams`)
         along a new leading frame axis: numpy stacking on the host, then
-        ONE transfer of all fields to ``device``."""
+        ONE transfer of all fields to ``device`` (required, as for
+        :meth:`from_static`)."""
         fields = [np.stack([np.asarray(getattr(p, f), dtype=np.float64)
                             for p in params_list])
                   for f in DynGeorefParams._fields]
         n = len(params_list)
         flat = torch.from_numpy(np.concatenate(
-            [a.reshape(n, -1) for a in fields], axis=1)).to(device=device,
-                                                            dtype=dtype)
+            [a.reshape(n, -1) for a in fields], axis=1)).to(
+                device=compute_device(device), dtype=dtype)
         cols = np.cumsum([0] + [a[0].size for a in fields])
         return DynGeorefParams(*(
             flat[:, c0:c1].reshape(a.shape)
@@ -283,8 +286,9 @@ def _mlatmlt_from_j2000(p, ix, iy, iz):
 
 
 def georeference(params: GeorefParams, fast_center=False, with_mlatmlt=True,
-                 dtype=torch.float64, device="cpu"):
-    """Fully georeference one frame on ``device``.
+                 dtype=torch.float64, device="cuda"):
+    """Fully georeference one frame on ``device`` (the card by default;
+    pass ``device="cpu"`` for the CPU).
 
     :param fast_center: compute pixel-centre values as the mean of the 4
         surrounding corner values instead of a second full evaluation
@@ -303,7 +307,7 @@ def georeference(params: GeorefParams, fast_center=False, with_mlatmlt=True,
 
 
 def georeference_generic(wcs, params=None, fast_center=False,
-                         with_mlatmlt=True, dtype=torch.float64, device="cpu"):
+                         with_mlatmlt=True, dtype=torch.float64, device="cuda"):
     """Georeference a frame with a non-TAN projection: not ported yet (the
     generic WCS projections on device are ROADMAP queue 1 item 8)."""
     raise NotImplementedError(

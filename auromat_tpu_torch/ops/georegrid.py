@@ -9,23 +9,24 @@ bin indices -> mean binning) for one frame:
   indices (:func:`auromat_tpu_torch.ops.regrid.bin_indices`) are plain
   elementwise tensor code;
 - the binning is K1, a CUDA kernel written by hand
-  (``csrc/georegrid_bin.cu``), with its plain PyTorch version
-  (:func:`bin_rgbelev_plain`) beside it in this module. ``compute='i8'``
-  selects K1-i8, the same kernel with the elevation quantization of the
-  JAX package's int8 variant.
+  (``csrc/georegrid_bin.cu``: shared-memory tile histograms on the engine of
+  ``csrc/bin_tile.cuh``, with a fused float32 epilogue), with its plain
+  PyTorch version (:func:`bin_rgbelev_plain`) beside it in this module.
+  ``compute='i8'`` selects K1-i8, the same kernel with the elevation
+  quantization of the JAX package's int8 variant.
 
 The whole (count, 4 sums) accumulator of a grid lives in device memory at
-once (24 bytes a cell: ~0.6 GB even for the 0.05 deg global grid), so the
-TPU package's VMEM workarounds — lat slabs, tile bounds, tile shapes —
-have no counterpart here.
+once (40 bytes of int64 sums a cell: ~1 GB even for the 0.05 deg global
+grid), so the TPU package's VMEM workarounds — lat slabs, tile bounds,
+tile shapes — have no counterpart here.
 
 K1 takes any (n, w) block of samples: one frame (h, w) or a burst of
 frames stacked along the rows (B*h, w), as the mosaic step
-(:mod:`auromat_tpu_torch.parallel.sharding`) passes it. Its count and
-R/G/B words are uint32. Neither can wrap unseen: the samples of one call
-number < 2^32, so no count wraps, and every call checks after binning
-that no cell holds more than :data:`MAX_CELL_COUNT` samples, so no R/G/B
-sum (<= 255 a sample) wraps; a call that breaks either bound raises.
+(:mod:`auromat_tpu_torch.parallel.sharding`) passes it. A call refuses
+2^32 samples or more, and any cell that ends up holding more than
+:data:`MAX_CELL_COUNT` samples (the JAX package's uint32 bound): the
+plain version checks the counts after binning, the kernel raises a status
+word that the wrapper reads once (one small copy, one host sync a call).
 :func:`bin_rgbelev_int` and :func:`bin_rgbelev_plain_int` return the
 integer sums themselves, for callers that add them across calls.
 
@@ -66,14 +67,17 @@ def _check_inputs(grid, iy, ix, img_chw, elev):
         raise ValueError("grid too large for int32 cell indices")
 
 
-def _check_cell_counts(count):
-    """Raise if a cell holds more than :data:`MAX_CELL_COUNT` samples: its
-    uint32 R/G/B sums could then have wrapped in the kernel (one
-    reduction and one host sync a call)."""
-    most = int(count.max().item()) if count.numel() else 0
+def refuse_cell_count(most):
+    """Raise if the fullest cell, ``most`` samples, holds more than
+    :data:`MAX_CELL_COUNT` (a uint32 R/G/B sum could wrap)."""
     if most > MAX_CELL_COUNT:
         raise ValueError(f"a cell holds {most} samples: its uint32 R/G/B "
                          f"sums could overflow (at most {MAX_CELL_COUNT})")
+
+
+def _check_cell_counts(count):
+    """The plain version's refusal: one reduction and one host sync."""
+    refuse_cell_count(int(count.max().item()) if count.numel() else 0)
 
 
 def _check_compute(compute):
@@ -135,32 +139,47 @@ def bin_rgbelev_plain_int(grid: GridSpec, iy, ix, img_chw, elev,
     return cnt_rgb, elev_fixed
 
 
-def launch_k1(grid, iy, ix, img_chw, elev, acc, elev_acc, compute="bf16"):
+def launch_k1(grid, iy, ix, img_chw, elev, acc, elev_acc, status,
+              count=None, sums=None, compute="bf16"):
     """Launch K1 (or K1-i8) on the current stream, adding into ``acc``
-    ((n_cells, 4) int32 holding uint32 [count, R, G, B]) and ``elev_acc``
-    ((n_cells,) int64 fixed-point elevation). Shapes and dtypes are
-    validated by the caller (:func:`_check_inputs`)."""
+    ((n_cells, 4) int64 [count, R, G, B]) and ``elev_acc`` ((n_cells,)
+    int64 fixed-point elevation), and raising ``status`` ((1,) int64) to
+    the count of any cell past :data:`MAX_CELL_COUNT`; with ``count``
+    ((n_cells,) float32) and ``sums`` ((n_cells, 4) float32) the same call
+    runs the float32 epilogue. Shapes and dtypes are validated by the
+    caller (:func:`_check_inputs`)."""
     for name, t in (("iy", iy), ("ix", ix), ("img_chw", img_chw),
                     ("elev", elev)):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous for the K1 kernel")
-    ptr = lambda t: ctypes.c_void_p(t.data_ptr())
+    ptr = lambda t: ctypes.c_void_p(None if t is None else t.data_ptr())
+    n, w = iy.shape
     with torch.cuda.device(iy.device):  # the launcher reads the current device
         _KERNELS[compute](
-            ptr(iy), ptr(ix), ptr(img_chw), ptr(elev), iy.numel(), grid.n_lat,
-            grid.n_lon, ptr(acc), ptr(elev_acc),
-            ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+            ptr(iy), ptr(ix), ptr(img_chw), ptr(elev), n, w, grid.n_lat,
+            grid.n_lon, ptr(acc), ptr(elev_acc), ptr(status), ptr(count),
+            ptr(sums), ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
 
 
-def _bin_rgbelev_cuda(grid, iy, ix, img_chw, elev, compute):
-    n_cells = grid.n_lat * grid.n_lon
-    acc = torch.zeros(n_cells, 4, dtype=torch.int32, device=iy.device)
-    elev_acc = torch.zeros(n_cells, dtype=torch.int64, device=iy.device)
-    launch_k1(grid, iy, ix, img_chw, elev, acc, elev_acc, compute)
-    # the int32 words hold uint32 sums: reinterpret before widening
-    cnt_rgb = acc.long() & 0xFFFFFFFF
-    _check_cell_counts(cnt_rgb[:, 0])
-    return cnt_rgb, elev_acc
+def _bin_rgbelev_cuda(grid, iy, ix, img_chw, elev, compute, finish):
+    """K1 on the card: the float32 (count, sums) with ``finish``, else the
+    int64 sums of :func:`bin_rgbelev_int`."""
+    n_cells, dev = grid.n_lat * grid.n_lon, iy.device
+    # one zero-fill for the sums and the status word
+    zeros = torch.zeros(5 * n_cells + 1, dtype=torch.int64, device=dev)
+    acc = zeros[:4 * n_cells].view(n_cells, 4)
+    elev_acc, status = zeros[4 * n_cells:-1], zeros[-1:]
+    count = sums = None
+    if finish:
+        count = torch.empty(n_cells, dtype=torch.float32, device=dev)
+        sums = torch.empty(n_cells, 4, dtype=torch.float32, device=dev)
+    launch_k1(grid, iy, ix, img_chw, elev, acc, elev_acc, status, count,
+              sums, compute)
+    refuse_cell_count(int(status.item()))
+    if finish:
+        return (count.reshape(grid.n_lat, grid.n_lon),
+                sums.reshape(grid.n_lat, grid.n_lon, 4))
+    return acc, elev_acc
 
 
 def bin_rgbelev_int(grid: GridSpec, iy, ix, img_chw, elev, compute="bf16"):
@@ -175,12 +194,18 @@ def bin_rgbelev_int(grid: GridSpec, iy, ix, img_chw, elev, compute="bf16"):
         at the scale of ``compute``; both exact, so sums of several calls
         equal one call over all their samples
     """
+    return _bin_rgbelev(grid, iy, ix, img_chw, elev, compute, finish=False)
+
+
+def _bin_rgbelev(grid, iy, ix, img_chw, elev, compute, finish):
+    """The kernel for CUDA tensors, the plain version for CPU tensors."""
     _check_compute(compute)
     if iy.device.type == "cuda":
         _check_inputs(grid, iy, ix, img_chw, elev)
-        return _bin_rgbelev_cuda(grid, iy, ix, img_chw, elev, compute)
+        return _bin_rgbelev_cuda(grid, iy, ix, img_chw, elev, compute, finish)
     if iy.device.type == "cpu":
-        return bin_rgbelev_plain_int(grid, iy, ix, img_chw, elev, compute)
+        sums = bin_rgbelev_plain_int(grid, iy, ix, img_chw, elev, compute)
+        return finish_int_sums(grid, *sums, compute) if finish else sums
     raise ValueError(f"K1 runs on cuda (kernel) or cpu (plain); got {iy.device}")
 
 
@@ -207,8 +232,7 @@ def bin_rgbelev_from_indices(grid: GridSpec, iy, ix, img_chw, elev,
         2^-31 ('bf16') or below 2^-16 ('i8') per sample of the exact sum,
         then rounded once to float32.
     """
-    return finish_int_sums(grid, *bin_rgbelev_int(grid, iy, ix, img_chw,
-                                                  elev, compute), compute)
+    return _bin_rgbelev(grid, iy, ix, img_chw, elev, compute, finish=True)
 
 
 def split_bin_indices(grid, flat, valid):

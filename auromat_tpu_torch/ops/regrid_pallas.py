@@ -6,7 +6,9 @@ signatures, minus ``interpret`` and ``tiles``). The JAX package holds two
 Pallas kernels here, K3 (``bin_partial_pallas``: full-width one-hot
 matrices) and K2 (``bin_partial_pallas_cw``: 128-column windows); the
 split between them is TPU tiling, and their contract is one. Both run the
-same CUDA kernel, ``csrc/regrid_bin.cu``, counted per entry point
+same CUDA kernel, ``csrc/regrid_bin.cu`` (shared-memory tile histograms
+on the engine of ``csrc/bin_tile.cuh``, with a fused float32 epilogue),
+counted per entry point
 (``_kernels.REGRID_BIN`` for K2 and what is built on it,
 ``_kernels.REGRID_BIN_V1`` for K3). CUDA tensors go to the kernel, CPU
 tensors to its plain version (:func:`bin_partial_cw_plain`), and any other
@@ -26,13 +28,18 @@ summed exactly as an int64:
   the JAX 'full' mode's bf16 fraction limb (up to 2^-9 a sample).
 
 The wrappers refuse values outside the mode's range and inputs whose
-worst-case cell sum (every valid sample in one cell) could overflow int64.
+worst-case cell sum (every valid sample in one cell) could overflow int64
+(:func:`check_status`). The plain version computes what that takes with
+tensor reductions (:func:`input_status`); the kernel computes it while it
+bins, into three status words that the wrapper reads once
+(:func:`decode_status`), and both raise the same errors.
 Sums come back as float32, as from the JAX kernels. NaN data at a valid
 coordinate adds 0; :func:`bin_mean_pallas_taint` layers the reference's
 NaN-taint semantics on top.
 """
 
 import ctypes
+import struct
 
 import torch
 
@@ -45,10 +52,15 @@ ELEV_SHIFT = 30  # 'uint8' mode: fixed-point scale 2^30 of the last channel
 FIXED_SHIFT = 20  # 'full'/'raw' modes: fixed-point scale 2^20 of every channel
 MODES = {"uint8": 0, "full": 1, "raw": 2}
 _INT64_MAX = 2 ** 63 - 1
+_VIOLATIONS = {
+    "uint8": "'uint8' mode: the leading channels must hold integers 0..255",
+    "full": "'full' mode: values must lie in [0, 65536)",
+    "raw": "'raw' mode: values must be bf16-exact",
+}
 
 
-def _check_inputs(grid, iy, ix, data, mode):
-    """Shapes, dtypes, devices, value ranges and int64 headroom."""
+def _check_layout(grid, iy, ix, data, mode):
+    """Mode, shapes, dtypes and devices."""
     if mode not in MODES:
         raise ValueError(f"unknown mode {mode!r}")
     h, w = iy.shape
@@ -65,30 +77,59 @@ def _check_inputs(grid, iy, ix, data, mode):
         raise ValueError(f"ix: want {(h, w)}, got {tuple(ix.shape)}")
     if grid.n_lat * grid.n_lon >= 2 ** 31:
         raise ValueError("grid too large for int32 cell indices")
+
+
+def input_status(grid, iy, ix, data, mode):
+    """What the refusals need, by tensor reductions (the plain version):
+    (bad, n_valid, bound) — whether a value the kernel adds breaks the
+    mode's range, the number of valid samples, and the largest magnitude
+    (``'uint8'``: |last + 90| in float32; else |x|) over every sample with
+    invalid or NaN data as 0."""
     valid = ((iy >= 0) & (iy < grid.n_lat) & (ix >= 0) & (ix < grid.n_lon))
     n_valid = int(valid.sum().item())
     # only the samples the kernel adds are held to the mode; NaN adds 0
     d = torch.where(valid[..., None] & ~torch.isnan(data), data, 0.0)
     if mode == "uint8":
         lead, last = d[..., :-1], d[..., -1]
-        if not bool(((lead >= 0) & (lead <= 255) & (lead == torch.floor(lead)))
-                    .all().item()):
-            raise ValueError("'uint8' mode: the leading channels must hold "
-                             "integers 0..255")
+        ok = (lead >= 0) & (lead <= 255) & (lead == torch.floor(lead))
         bound = (last + ELEV_OFFSET).abs().max().item() if last.numel() else 0.0
-        scale = 2.0 ** ELEV_SHIFT
     else:
-        if mode == "full" and not bool(((d >= 0) & (d < 65536)).all().item()):
-            raise ValueError("'full' mode: values must lie in [0, 65536)")
-        if mode == "raw" and not bool(
-                (d.to(torch.bfloat16).float() == d).all().item()):
-            raise ValueError("'raw' mode: values must be bf16-exact")
+        if mode == "full":
+            ok = (d >= 0) & (d < 65536)
+        else:
+            ok = d.to(torch.bfloat16).float() == d
         bound = d.abs().max().item() if d.numel() else 0.0
-        scale = 2.0 ** FIXED_SHIFT
+    return not bool(ok.all().item()), n_valid, bound
+
+
+def decode_status(status, mode, n_samples):
+    """(bad, n_valid, bound) of :func:`input_status` from the kernel's three
+    status words [violation, float32 bits of the largest magnitude over the
+    valid samples, valid samples] for ``n_samples`` samples."""
+    viol, bits, n_valid = (int(v) for v in status)
+    bound = struct.unpack("<f", struct.pack("<I", bits))[0]
+    if mode == "uint8" and n_valid < n_samples:
+        bound = max(bound, ELEV_OFFSET)  # an invalid sample counts as 0 + 90
+    return bool(viol), n_valid, bound
+
+
+def check_status(mode, bad, n_valid, bound):
+    """Raise if a value breaks the mode's range, or if a cell holding every
+    valid sample at magnitude ``bound`` could overflow an int64 sum."""
+    if bad:
+        raise ValueError(_VIOLATIONS[mode])
+    scale = 2.0 ** (ELEV_SHIFT if mode == "uint8" else FIXED_SHIFT)
     # a cell may get every valid sample; each term rounds up by at most 1
     if not (bound * scale + 1.0) * max(n_valid, 1) < _INT64_MAX:
         raise ValueError(f"{n_valid} samples of magnitude up to {bound} could "
                          "overflow the int64 fixed-point sums")
+
+
+def _check_inputs(grid, iy, ix, data, mode):
+    """Shapes, dtypes, devices, value ranges and int64 headroom, by tensor
+    reductions (several host syncs)."""
+    _check_layout(grid, iy, ix, data, mode)
+    check_status(mode, *input_status(grid, iy, ix, data, mode))
 
 
 def _finish(grid, acc, n_ch, mode):
@@ -131,30 +172,41 @@ def bin_partial_cw_plain(grid: GridSpec, iy, ix, data, mode="uint8"):
     return _finish(grid, acc, n_ch, mode)
 
 
-def launch_k2(grid, iy, ix, data, mode, acc, kernel=REGRID_BIN):
-    """Launch the K2/K3 kernel on the current stream, adding into ``acc``
-    ((n_cells, 1 + n_ch) int64). Inputs are validated by the caller
-    (:func:`_check_inputs`)."""
+def launch_k2(grid, iy, ix, data, mode, acc, status, count, sums,
+              kernel=REGRID_BIN):
+    """Launch the K2/K3 kernel on the current stream: add into ``acc``
+    ((n_cells, 1 + n_ch) int64), write the checks into ``status`` ((3,)
+    int64, zeroed) and the float32 ``count`` (n_cells,) and ``sums``
+    (n_cells, n_ch). Layouts are validated by the caller
+    (:func:`_check_layout`)."""
     for name, t in (("iy", iy), ("ix", ix), ("data", data)):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous for the K2 kernel")
     ptr = lambda t: ctypes.c_void_p(t.data_ptr())
+    h, w = iy.shape
     with torch.cuda.device(iy.device):  # the launcher reads the current device
-        kernel(ptr(iy), ptr(ix), ptr(data), iy.numel(), data.shape[-1],
+        kernel(ptr(iy), ptr(ix), ptr(data), h, w, data.shape[-1],
                grid.n_lat, grid.n_lon, MODES[mode],
                ELEV_SHIFT if mode == "uint8" else FIXED_SHIFT, ptr(acc),
+               ptr(status), ptr(count), ptr(sums),
                ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
 
 
 def _bin(grid, iy, ix, data, mode, kernel):
     """The kernel for CUDA tensors, the plain version for CPU tensors."""
     if iy.device.type == "cuda":
-        _check_inputs(grid, iy, ix, data, mode)
-        n_ch = data.shape[-1]
-        acc = torch.zeros(grid.n_lat * grid.n_lon, 1 + n_ch, dtype=torch.int64,
-                          device=iy.device)
-        launch_k2(grid, iy, ix, data, mode, acc, kernel)
-        return _finish(grid, acc, n_ch, mode)
+        _check_layout(grid, iy, ix, data, mode)
+        n_cells, n_ch, dev = grid.n_lat * grid.n_lon, data.shape[-1], iy.device
+        # one zero-fill for the sums and the status words
+        zeros = torch.zeros(n_cells * (1 + n_ch) + 3, dtype=torch.int64,
+                            device=dev)
+        acc, status = zeros[:-3].view(n_cells, 1 + n_ch), zeros[-3:]
+        count = torch.empty(n_cells, dtype=torch.float32, device=dev)
+        sums = torch.empty(n_cells, n_ch, dtype=torch.float32, device=dev)
+        launch_k2(grid, iy, ix, data, mode, acc, status, count, sums, kernel)
+        check_status(mode, *decode_status(status.tolist(), mode, iy.numel()))
+        return (count.reshape(grid.n_lat, grid.n_lon),
+                sums.reshape(grid.n_lat, grid.n_lon, n_ch))
     if iy.device.type == "cpu":
         return bin_partial_cw_plain(grid, iy, ix, data, mode)
     raise ValueError(f"K2 runs on cuda (kernel) or cpu (plain); got {iy.device}")

@@ -18,18 +18,21 @@ import torch.distributed as dist
 _CLUSTER_ENV = ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK")
 
 
-def initialize(device="cpu"):
+def initialize(device="cuda"):
     """Join the process group the environment describes (idempotent).
 
     :param device: the device type the ranks compute on: 'cuda' selects
         NCCL and makes ``cuda:LOCAL_RANK`` this process's current device,
-        'cpu' selects gloo
+        'cpu' selects gloo; 'cuda' raises when torch finds no CUDA device
     :returns: True when a process group is up, False when no cluster is
         configured (a world of one; a no-op)
     :raises ValueError: when the cluster environment is incomplete; any
         failure of the process group's start propagates (a configured
         cluster never degrades to a world of one)
     """
+    from auromat_tpu_torch.ops.georef import compute_device
+
+    device = compute_device(device)
     if dist.is_initialized():
         return True
     present = [k for k in _CLUSTER_ENV if os.environ.get(k)]
@@ -39,7 +42,7 @@ def initialize(device="cpu"):
         missing = sorted(set(_CLUSTER_ENV) - set(present))
         raise ValueError(f"incomplete cluster config: {missing} not set "
                          f"(got {present})")
-    if torch.device(device).type == "cuda":
+    if device.type == "cuda":
         torch.cuda.set_device(local_device("cuda"))
         backend = "nccl"
     else:
@@ -61,9 +64,10 @@ def is_multi_process():
     return dist.is_initialized() and dist.get_world_size() > 1
 
 
-def global_mesh(dp=None, sp=None, device="cpu"):
+def global_mesh(dp=None, sp=None, device="cuda"):
     """(dp, sp) mesh over every rank of the default process group (a world
-    of one without one); ``device`` is this rank's device.
+    of one without one); ``device`` is this rank's device (the card by
+    default).
 
     The mosaic step's band routing is a reduction over the whole mesh, so
     with several hosts it crosses the network whatever the (dp, sp) split;

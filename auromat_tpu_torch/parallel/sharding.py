@@ -89,9 +89,10 @@ def factorise(n, dp=None, sp=None):
     return dp, sp
 
 
-def make_mesh(dp=None, sp=None, device="cpu"):
+def make_mesh(dp=None, sp=None, device="cuda"):
     """A (dp, sp) mesh over the ranks of the default process group (a
-    world of one when none is initialised); ``device`` is this rank's.
+    world of one when none is initialised); ``device`` is this rank's
+    (the card by default; pass ``device="cpu"`` for the CPU).
 
     Picks the most square-ish factorisation when sizes are not given.
     """

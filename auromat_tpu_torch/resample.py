@@ -63,7 +63,7 @@ def plate_carree_resolution(bounding_box: BoundingBox, arcsec_per_px):
 
 def resample(mapping_or_collection, px_per_deg=25, arcsec_per_px=None,
              contains_pole=None, method="mean", bin_method="auto",
-             device="cpu"):
+             device="cuda"):
     """Resample image+elevation onto a regular lat/lon grid.
 
     With 'mean' binning, high target resolutions produce empty cells at low
@@ -74,7 +74,8 @@ def resample(mapping_or_collection, px_per_deg=25, arcsec_per_px=None,
     :param method: 'mean'; the interpolation methods are not ported yet
     :param bin_method: 'auto' (see the module docstring), 'pallas_rgbelev'
         (K1), 'pallas_taint' (K2) or any ``ops.regrid._BIN_METHODS`` name
-    :param device: where the binning runs; the result is a host Mapping
+    :param device: where the binning runs (the card by default; pass
+        ``device="cpu"`` for the CPU); the result is a host Mapping
     :rtype: Mapping or MappingCollection
     """
     if isinstance(mapping_or_collection, MappingCollection):
@@ -201,7 +202,7 @@ def _bin_mean_on(device, grid, lats_center, lons_center, data, bin_method):
 
 def _resample(lats_center, lons_center, altitude, data, outline_fn, bbox,
               px_per_deg, contains_discontinuity, contains_pole,
-              bin_method="sorted", device="cpu"):
+              bin_method, device):
     lat_min, lat_max = bbox.latSouth, bbox.latNorth
     lon_min, lon_max = bbox.lonWest, bbox.lonEast
 

@@ -54,11 +54,28 @@ them:
     (539x524 grid) against the same step with K1's plain version (CUDA
     events), ``mosaic_sequence`` over 100 jittered frames from a
     device-resident 8-frame buffer (wall clock ending in a synchronize),
-    and the step on the global 0.05 deg grid with 4 frames, in ms/frame.
+    and the step on the global 0.05 deg grid with 4 frames, in ms/frame;
+14. the tile histograms' other paths at full size: seeded random cells
+    over the main grid (every tile's cell box overflows shared memory, so
+    every tile takes the warp-aggregated fallback) for K1, K1-i8, K2 in
+    every mode and K3; ragged planes (w not a multiple of 4 or of the
+    128-column tile, one row, no valid sample, bases off the 16-byte
+    alignment); each bit-equal to its plain version with count totals
+    equal to the valid samples; and the refusals (MAX_CELL_COUNT + 1
+    samples in one cell, an out-of-range K2 channel) raising the plain
+    version's message.
 
-Prints one line per phase, then a JSON line of per-kernel results, and
-as the last line ``{"ok": true, "device": {...}}``. Any failure raises and
-the exit code is nonzero; without a CUDA device it fails at once.
+Every kernel row gets, beside its time and its plain version's, its bound
+(``bound_ms``: the bytes the function must move — every index, the data
+of the valid samples, every output once — over the H100's 3.35 TB/s) and
+``library_ms``: one int64 ``index_add_`` of the same (count, channel,
+fixed-point elevation) sums, its inputs prepared outside the timed window,
+timed in turns with the kernel. The port never calls it.
+
+Prints one line per phase, then the card's line, a JSON line of
+per-kernel results, and as the last line ``{"ok": true, "device":
+{...}}``. Any failure raises and the exit code is nonzero; without a CUDA
+device it fails at once.
 
     python3 chip_smoke.py
 """
@@ -83,6 +100,7 @@ GOLDEN_RESAMPLE = os.path.join(RES, "golden_resample_ISS030-E-102170_dc.npz")
 SEQ_WCS = [os.path.join(RES, "seq", f"ISS029-E-{n}.wcs")
            for n in range(8493, 8503)]
 GLOBAL_005 = (20, -89.999, 89.999, -179.999, 179.999)  # 0.05 deg, 3599x7199
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA's data sheet)
 
 
 def card_line():
@@ -140,6 +158,51 @@ def in_turns(torch, kernel, plain, reps=N_TIMED):
         runs[f].append(cuda_ms(torch, f, reps))
     return (statistics.median(runs[kernel]), statistics.median(runs[plain]),
             runs[kernel], runs[plain])
+
+
+def bound_ms(n_bytes):
+    """The least time the card could take to move ``n_bytes``."""
+    return n_bytes / HBM_BYTES_PER_S * 1e3
+
+
+def bin_bytes(idx_bytes, n_samples, n_valid, in_ch, n_cells, out_words,
+              out_bytes=4):
+    """Bytes a binning function must move: every sample's two indices (or
+    coordinates) of ``idx_bytes`` each, the ``in_ch`` float32 channels of
+    the valid samples, and ``out_words`` words of ``out_bytes`` a cell."""
+    return (2 * idx_bytes * n_samples + 4 * in_ch * n_valid
+            + out_bytes * out_words * n_cells)
+
+
+def kernel_row(name, source, replaces, launches, err, k_ms, p_ms, n_bytes,
+               lib_ms):
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches, "max_abs_err": err,
+            "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound_ms(n_bytes),
+            "bound_by": "bytes", "library_ms": lib_ms}
+
+
+def library_call(torch, grid, iy, ix, terms):
+    """One PyTorch call computing a binning kernel's integer sums:
+    ``zeros(n_cells, k).index_add_(0, cell, vals)`` with ``cell``
+    (n_valid,) and ``vals`` (n_valid, k) = [1, *terms] int64, prepared
+    here, outside the call."""
+    valid = (iy >= 0) & (iy < grid.n_lat) & (ix >= 0) & (ix < grid.n_lon)
+    cell = (iy.long() * grid.n_lon + ix.long())[valid]
+    vals = torch.stack([torch.ones_like(cell)] + [t[valid] for t in terms], 1)
+    n_cells = grid.n_lat * grid.n_lon
+    return lambda: torch.zeros(n_cells, vals.shape[1], dtype=torch.int64,
+                               device=cell.device).index_add_(0, cell, vals)
+
+
+def fixed_terms(torch, chans, elev, shift=30, i8=False):
+    """int64 terms of K1/K2's 'uint8' contract: integer channels as they
+    are, elevation in fixed point (NaN adds 0)."""
+    nan0 = lambda t: torch.where(t == t, t, 0.0)
+    e = nan0(elev)
+    q = (torch.floor((e + 90.0) * 2.0 ** 16) if i8
+         else torch.round((e.double() + 90.0) * 2.0 ** shift))
+    return [nan0(c).long() for c in chans] + [q.long()]
 
 
 def wall_ms(torch, fn, reps):
@@ -350,12 +413,43 @@ def slice_phases(torch, np, builds, grid, iy, ix, out, card):
             torch, lambda: rp.bin_partial_pallas_cw(grid, (iy, ix), d,
                                                     d.shape[-1], mode),
             lambda: rp.bin_partial_cw_plain(grid, iy, ix, d, mode))
-    # K2 alone on the taint stack, without the wrapper's range checks,
-    # zero-fill and float epilogue
-    acc = torch.zeros(grid.n_lat * grid.n_lon, 1 + data["taint"].shape[-1],
-                      dtype=torch.int64, device=dev)
+    # K2 alone on the taint stack (binning, checks and epilogue), without
+    # the wrapper's zero-fill and status read
+    taint, n_cells = data["taint"], grid.n_lat * grid.n_lon
+    bufs = (torch.zeros(n_cells, 1 + taint.shape[-1], dtype=torch.int64,
+                        device=dev),
+            torch.zeros(3, dtype=torch.int64, device=dev),
+            torch.empty(n_cells, dtype=torch.float32, device=dev),
+            torch.empty(n_cells, taint.shape[-1], dtype=torch.float32,
+                        device=dev))
     k2_alone_ms = cuda_ms(torch, lambda: rp.launch_k2(
-        grid, iy, ix, data["taint"], "uint8", acc), N_TIMED)
+        grid, iy, ix, taint, "uint8", *bufs), N_TIMED)
+    del bufs
+    # one int64 index_add_ of the same sums, timed in turns with the kernel
+    lib = {
+        "K2": (lambda: rp.bin_partial_pallas_cw(grid, (iy, ix), taint, 8,
+                                                "uint8"),
+               library_call(torch, grid, iy, ix, fixed_terms(
+                   torch, [taint[..., c] for c in range(7)], taint[..., 7]))),
+        "K3": (lambda: rp.bin_partial_pallas(grid, lat, lon, data["uint8"],
+                                             "uint8"),
+               library_call(torch, grid, iy, ix, fixed_terms(
+                   torch, [img3[..., c] for c in range(3)], elev))),
+        "K1-i8": (lambda: bin_rgbelev_from_indices(grid, iy, ix, img_chw, elev,
+                                                   compute="i8"),
+                  library_call(torch, grid, iy, ix, fixed_terms(
+                      torch, [img3[..., c] for c in range(3)], elev,
+                      i8=True))),
+    }
+    lib_ms = {}
+    for name, (kernel, call) in lib.items():
+        _, lib_ms[name], _, _ = in_turns(torch, kernel, call)
+    del lib
+    n_bytes = {
+        "K2": bin_bytes(4, iy.numel(), n_valid, 8, n_cells, 9),
+        "K3": bin_bytes(lat.element_size(), iy.numel(), n_valid, 4, n_cells,
+                        5),
+        "K1-i8": bin_bytes(4, iy.numel(), n_valid, 4, n_cells, 5)}
     times["K3"] = in_turns(
         torch, lambda: rp.bin_partial_pallas(grid, lat, lon, data["uint8"],
                                              "uint8"),
@@ -372,6 +466,10 @@ def slice_phases(torch, np, builds, grid, iy, ix, out, card):
               flush=True)
     print(f"[9] K2 kernel alone on the taint stack: {k2_alone_ms:.3f} ms; on "
           f"{card}", flush=True)
+    for name in ("K2", "K3", "K1-i8"):
+        print(f"[9] {name}: one int64 index_add_ of the same sums "
+              f"{lib_ms[name]:.3f} ms; bound {bound_ms(n_bytes[name]):.4f} ms "
+              f"({n_bytes[name]} bytes at 3.35 TB/s); on {card}", flush=True)
 
     params = GeorefParams.from_wcs(TanWcs(header), pos, photo_time, altitude)
     georef_ms = cuda_ms(torch, lambda: georeference(params, False, True,
@@ -423,23 +521,20 @@ def slice_phases(torch, np, builds, grid, iy, ix, out, card):
           f"{slice_ms:.1f} ms, of which {device_ms:.1f} ms on the device; "
           f"on {card}", flush=True)
 
-    k2_ms, k2_plain, _, _ = times["K2", "taint"]
+    k1_src = "auromat_tpu_torch/ops/csrc/georegrid_bin.cu"
+    k2_src = "auromat_tpu_torch/ops/csrc/regrid_bin.cu"
     return [
-        {"name": "georegrid_bin i8 (K1-i8)", "route": "cuda",
-         "source": "auromat_tpu_torch/ops/csrc/georegrid_bin.cu",
-         "replaces": "auromat_tpu/ops/georegrid.py:142",
-         "launches": launches["K1-i8"], "max_abs_err": err["K1-i8"],
-         "ms": times["K1-i8"][0], "plain_ms": times["K1-i8"][1]},
-        {"name": "regrid_bin (K2)", "route": "cuda",
-         "source": "auromat_tpu_torch/ops/csrc/regrid_bin.cu",
-         "replaces": "auromat_tpu/ops/regrid_pallas.py:292",
-         "launches": launches["pallas_taint"], "max_abs_err": err["K2"],
-         "ms": k2_ms, "plain_ms": k2_plain},
-        {"name": "regrid_bin via bin_partial_pallas (K3)", "route": "cuda",
-         "source": "auromat_tpu_torch/ops/csrc/regrid_bin.cu",
-         "replaces": "auromat_tpu/ops/regrid_pallas.py:68",
-         "launches": launches["K3"], "max_abs_err": err["K3"],
-         "ms": times["K3"][0], "plain_ms": times["K3"][1]},
+        kernel_row("georegrid_bin i8 (K1-i8)", k1_src,
+                   "auromat_tpu/ops/georegrid.py:142", launches["K1-i8"],
+                   err["K1-i8"], *times["K1-i8"][:2], n_bytes["K1-i8"],
+                   lib_ms["K1-i8"]),
+        kernel_row("regrid_bin (K2), taint stack", k2_src,
+                   "auromat_tpu/ops/regrid_pallas.py:292",
+                   launches["pallas_taint"], err["K2"],
+                   *times["K2", "taint"][:2], n_bytes["K2"], lib_ms["K2"]),
+        kernel_row("regrid_bin via bin_partial_pallas (K3)", k2_src,
+                   "auromat_tpu/ops/regrid_pallas.py:68", launches["K3"],
+                   err["K3"], *times["K3"][:2], n_bytes["K3"], lib_ms["K3"]),
     ]
 
 
@@ -529,13 +624,19 @@ def mosaic_phases(torch, np, card):
         torch, lambda: bin_rgbelev_int(g5_pad, iy8, ix8, img8, el8),
         lambda: bin_rgbelev_plain_int(g5_pad, iy8, ix8, img8, el8),
         N_BURST_TIMED)
-    # what the burst repair adds to each call: one max over the counts
-    # and its host sync
-    check_ms = cuda_ms(torch, lambda: int(got[0][:, 0].max().item()), N_TIMED)
+    del got, want
+    _, k1b_lib, _, _ = in_turns(
+        torch, lambda: bin_rgbelev_int(g5_pad, iy8, ix8, img8, el8),
+        library_call(torch, g5_pad, iy8, ix8, fixed_terms(
+            torch, list(img8), el8)), N_BURST_TIMED)
+    n_cells5 = g5_pad.n_lat * g5_pad.n_lon
+    k1b_bytes = bin_bytes(4, iy8.numel(), n_valid8, 4, n_cells5, 5, 8)
     print(f"[10] K1 on the 8-frame burst: {k1b_ms:.3f} ms vs plain "
-          f"{k1b_plain:.3f} ms (integer sums, with the cell-count check: "
-          f"{check_ms:.3f} ms of it); on {card}", flush=True)
-    del iy8, ix8, el8, img8, got, want
+          f"{k1b_plain:.3f} ms (integer sums; the cell-count check is in "
+          f"the kernel) and one int64 index_add_ {k1b_lib:.3f} ms; bound "
+          f"{bound_ms(k1b_bytes):.4f} ms ({k1b_bytes} bytes at 3.35 TB/s); "
+          f"on {card}", flush=True)
+    del iy8, ix8, el8, img8
 
     # -- 11. the sequence-mosaic path -----------------------------------------
     n_valid = n_high = 0
@@ -677,12 +778,149 @@ def mosaic_phases(torch, np, card):
           f"{g5.n_lat}x{g5.n_lon}): {c5_ms / 4:.3f} ms/frame; peak device "
           f"memory {peak:.2f} GiB; on {card}", flush=True)
 
-    return {"name": "georegrid_bin (K1) on the mosaic path, 8-frame burst",
-            "route": "cuda",
-            "source": "auromat_tpu_torch/ops/csrc/georegrid_bin.cu",
-            "replaces": "auromat_tpu/ops/georegrid.py:65",
-            "launches": seq_launches, "max_abs_err": burst_err,
-            "ms": k1b_ms, "plain_ms": k1b_plain}
+    return kernel_row("georegrid_bin (K1) on the mosaic path, 8-frame burst",
+                      "auromat_tpu_torch/ops/csrc/georegrid_bin.cu",
+                      "auromat_tpu/ops/georegrid.py:65", seq_launches,
+                      burst_err, k1b_ms, k1b_plain, k1b_bytes, k1b_lib)
+
+
+def tile_path_phases(torch, np, grid, card):
+    """Phase 14: the tile histograms' fallback and ragged paths, and the
+    refusals, at full size."""
+    from auromat_tpu_torch.ops import regrid_pallas as rp
+    from auromat_tpu_torch.ops.georegrid import (MAX_CELL_COUNT,
+                                                 bin_rgbelev_from_indices,
+                                                 bin_rgbelev_plain)
+    from auromat_tpu_torch.ops.regrid import bin_indices, fixed_grid
+
+    dev = torch.device("cuda")
+    small = fixed_grid((2.0, 1.0), 0.05, 19.95, 0.5, 129.5)
+
+    def inputs(g, shape, seed, offset=0):
+        """Seeded iy, ix over the whole grid (10% invalid, some past its
+        edge), image, elevation (1% NaN) and (image, elevation) channels
+        on the card, each cut ``offset`` elements into a buffer."""
+        rng = np.random.default_rng(seed)
+        iy = rng.integers(0, g.n_lat, shape)
+        ix = rng.integers(0, g.n_lon + 2, shape)
+        iy[rng.random(shape) < 0.1] = -1
+        img = rng.integers(0, 256, (3,) + shape).astype(np.float32)
+        elev = rng.uniform(-90, 90, shape).astype(np.float32)
+        elev[rng.random(shape) < 0.01] = np.nan
+        data = np.concatenate([np.moveaxis(img, 0, -1), elev[..., None]], -1)
+
+        def on(a, dtype):
+            flat = torch.zeros(a.size + offset, dtype=dtype, device=dev)
+            t = flat[offset:].view(a.shape)
+            t.copy_(torch.from_numpy(np.ascontiguousarray(a)))
+            return t
+
+        return (on(iy, torch.int32), on(ix, torch.int32),
+                on(img, torch.float32), on(elev, torch.float32),
+                on(data, torch.float32))
+
+    def check_all(name, g, iy, ix, img, elev, data):
+        """K1, K1-i8 and K2 in every mode == plain; count totals."""
+        valid = (iy >= 0) & (iy < g.n_lat) & (ix >= 0) & (ix < g.n_lon)
+        n_valid = int(valid.sum().item())
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        shape = tuple(iy.shape)
+        rand = lambda c: torch.rand(shape + (c,), generator=gen, device=dev)
+        k2 = {"uint8": data,
+              "taint": torch.cat([data[..., :3], (rand(4) < 0.3).float(),
+                                  data[..., 3:]], -1).contiguous(),
+              "full": rand(2) * 65535.0,
+              "raw": (rand(3) * 200 - 100).to(torch.bfloat16).float()}
+        pairs = [(f"K1 {c}",
+                  lambda c=c: bin_rgbelev_from_indices(g, iy, ix, img, elev, c),
+                  lambda c=c: bin_rgbelev_plain(g, iy, ix, img, elev, c))
+                 for c in ("bf16", "i8")]
+        pairs += [(f"K2 {kind}",
+                   lambda d=d, m=("uint8" if kind == "taint" else kind):
+                   rp.bin_partial_pallas_cw(g, (iy, ix), d, d.shape[-1], m),
+                   lambda d=d, m=("uint8" if kind == "taint" else kind):
+                   rp.bin_partial_cw_plain(g, iy, ix, d, m))
+                  for kind, d in k2.items()]
+        for label, kernel, plain in pairs:
+            got, want = kernel(), plain()
+            torch.cuda.synchronize()
+            check_equal(torch, f"{name}: {label}", got, want)
+            if int(got[0].sum(dtype=torch.float64).item()) != n_valid:
+                raise AssertionError(f"{name}: {label} count != valid samples")
+        return n_valid
+
+    # -- random cells: every tile's box is the whole grid (the fallback) --
+    h, w = 2832, 4256
+    iy, ix, img, elev, data = inputs(grid, (h, w), SEED)
+    n_valid = check_all("random cells", grid, iy, ix, img, elev, data)
+    rng = np.random.default_rng(SEED)
+    lat = torch.from_numpy(rng.uniform(46.9, 62.1, (h, w))).to(dev)
+    lon = torch.from_numpy(rng.uniform(-112.1, -90.9, (h, w))).to(dev)
+    got = rp.bin_partial_pallas(grid, lat, lon, data, "uint8")
+    want = rp.bin_partial_pallas_plain(grid, lat, lon, data, "uint8")
+    torch.cuda.synchronize()
+    check_equal(torch, "random coordinates: K3", got, want)
+    if int(got[0].sum().item()) != int(bin_indices(grid, lat, lon)[1].sum()):
+        raise AssertionError("K3 on random coordinates: count != valid")
+    rand_ms, rand_plain, _, _ = in_turns(
+        torch, lambda: bin_rgbelev_from_indices(grid, iy, ix, img, elev),
+        lambda: bin_rgbelev_plain(grid, iy, ix, img, elev))
+    print(f"[14] random cells over {grid.n_lat}x{grid.n_lon} at {h}x{w} "
+          f"(every tile on the fallback): K1, K1-i8, K2 ('uint8', taint, "
+          f"'full', 'raw') and K3 == plain, {n_valid} valid samples; K1 "
+          f"{rand_ms:.3f} ms vs plain {rand_plain:.3f} ms; on {card}",
+          flush=True)
+    del iy, ix, img, elev, data, lat, lon, got, want
+
+    # -- ragged planes ----------------------------------------------------
+    cases = {"w=4257": ((37, 4257), 0), "w=131": ((96, 131), 0),
+             "one row": ((1, 4256), 0), "1x3": ((1, 3), 0),
+             "unaligned": ((64, 256), 1), "unaligned w=130": ((33, 130), 2)}
+    for name, (shape, offset) in cases.items():
+        check_all(name, small, *inputs(small, shape, SEED + 1, offset))
+    iy, ix, img, elev, data = inputs(small, (64, 512), SEED + 2)
+    iy.fill_(-1)
+    check_all("no valid sample", small, iy, ix, img, elev, data)
+    print(f"[14] ragged planes ({', '.join(cases)}, no valid sample): "
+          f"every kernel == plain", flush=True)
+
+    # -- the refusals: the kernel raises the plain version's message -------
+    def same_refusal(name, kernel, plain):
+        msgs = []
+        for fn in (kernel, plain):
+            try:
+                fn()
+            except ValueError as e:
+                msgs.append(str(e))
+            else:
+                raise AssertionError(f"{name}: no refusal")
+        if msgs[0] != msgs[1]:
+            raise AssertionError(f"{name}: {msgs[0]!r} != {msgs[1]!r}")
+        return msgs[0]
+
+    for w in (2, 4096):  # one cell a tile (fast) / a far cell a row (fallback)
+        n = -(-(MAX_CELL_COUNT + 1) // (w if w == 2 else w - 1))
+        iy = torch.zeros((n, w), dtype=torch.int32, device=dev)
+        ix = torch.zeros_like(iy)
+        if w > 2:
+            iy[:, 0], ix[:, 0] = 30, 100
+        img = torch.full((3, n, w), 255.0, device=dev)
+        elev = torch.zeros((n, w), device=dev)
+        msg = same_refusal(
+            f"K1, {w} columns",
+            lambda: bin_rgbelev_from_indices(small, iy, ix, img, elev),
+            lambda: bin_rgbelev_plain(small, iy, ix, img, elev))
+        del iy, ix, img, elev
+    iy, ix, img, elev, data = inputs(small, (64, 512), SEED + 3)
+    iy[10, 10], ix[10, 10] = 3, 3
+    data[10, 10, 0] = 0.5
+    msg2 = same_refusal(
+        "K2 'uint8'",
+        lambda: rp.bin_partial_pallas_cw(small, (iy, ix), data, 4, "uint8"),
+        lambda: rp.bin_partial_cw_plain(small, iy, ix, data, "uint8"))
+    print(f"[14] refusals raise the plain version's message: K1 "
+          f"MAX_CELL_COUNT + 1 in one cell ({msg!r}), K2 ({msg2!r})",
+          flush=True)
 
 
 def main():
@@ -829,24 +1067,42 @@ def main():
     k1_ms, plain_ms, k1_runs, plain_runs = in_turns(
         torch, lambda: bin_rgbelev_from_indices(*k_args),
         lambda: bin_rgbelev_plain(*k_args))
-    # the kernel alone, without the wrapper's zero-fill and f32 epilogue
-    acc = torch.zeros(grid.n_lat * grid.n_lon, 4, dtype=torch.int32, device=dev)
-    eacc = torch.zeros(grid.n_lat * grid.n_lon, dtype=torch.int64, device=dev)
+    # the kernel and its epilogue alone, without the wrapper's zero-fill
+    # and status read
+    n_cells = grid.n_lat * grid.n_lon
+    acc = torch.zeros(n_cells, 4, dtype=torch.int64, device=dev)
+    eacc = torch.zeros(n_cells, dtype=torch.int64, device=dev)
+    status = torch.zeros(1, dtype=torch.int64, device=dev)
+    outs = (torch.empty(n_cells, device=dev), torch.empty(n_cells, 4, device=dev))
     raw_ms = cuda_ms(torch, lambda: launch_k1(grid, iy, ix, frames[0], elev,
-                                              acc, eacc), N_TIMED)
+                                              acc, eacc, status, *outs),
+                     N_TIMED)
+    raw_int_ms = cuda_ms(torch, lambda: launch_k1(grid, iy, ix, frames[0],
+                                                  elev, acc, eacc, status),
+                         N_TIMED)
+    del acc, eacc, status, outs
+    _, lib_ms, _, _ = in_turns(
+        torch, lambda: bin_rgbelev_from_indices(*k_args),
+        library_call(torch, grid, iy, ix, fixed_terms(torch, list(frames[0]),
+                                                      elev)))
+    k1_bytes = bin_bytes(4, iy.numel(), n_valid, 4, n_cells, 5)
     print(f"[5] K1 wrapper {k1_ms:.3f} ms vs plain {plain_ms:.3f} ms "
           f"(runs {[round(t, 3) for t in k1_runs]} / "
-          f"{[round(t, 3) for t in plain_runs]}); K1 kernel alone "
-          f"{raw_ms:.3f} ms; on {card}", flush=True)
+          f"{[round(t, 3) for t in plain_runs]}); K1 kernel + epilogue alone "
+          f"{raw_ms:.3f} ms (kernel alone {raw_int_ms:.3f}); one int64 "
+          f"index_add_ of the same sums {lib_ms:.3f} ms; bound "
+          f"{bound_ms(k1_bytes):.4f} ms ({k1_bytes} bytes at 3.35 TB/s; "
+          f"{bound_ms(bin_bytes(4, iy.numel(), iy.numel(), 4, n_cells, 5)):.4f}"
+          f" ms counting every sample's data); on {card}", flush=True)
 
-    rows = [{
-        "name": "georegrid_bin (K1)", "route": "cuda",
-        "source": "auromat_tpu_torch/ops/csrc/georegrid_bin.cu",
-        "replaces": "auromat_tpu/ops/georegrid.py:65",
-        "launches": launches["K1"], "max_abs_err": k1_err,
-        "ms": k1_ms, "plain_ms": plain_ms}]
+    rows = [kernel_row("georegrid_bin (K1)",
+                       "auromat_tpu_torch/ops/csrc/georegrid_bin.cu",
+                       "auromat_tpu/ops/georegrid.py:65", launches["K1"],
+                       k1_err, k1_ms, plain_ms, k1_bytes, lib_ms)]
     rows += slice_phases(torch, np, builds, grid, iy, ix, out, card)
+    del iy, ix, out, elev, k_args
     rows.append(mosaic_phases(torch, np, card))
+    tile_path_phases(torch, np, grid, card)
 
     print(card)
     print(json.dumps({"kernels": rows}))

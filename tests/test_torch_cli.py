@@ -15,8 +15,9 @@ provider and exporters, against the JAX package's CLI on the CPU.
 * The per-frame path (``--grid geo --min-elevation 10 --format cdf``) on a
   scaled copy of the real frame against the JAX CLI's file: float64 on
   both sides, so grids within 1e-9 deg, masks and uint8 image equal.
-* ``--platform cuda`` without a CUDA device exits nonzero; the port's CLI,
-  parallel and export modules import no jax.
+* ``--platform cuda`` without a CUDA device exits nonzero, and so does no
+  ``--platform`` (cuda is the default; the tests pass ``--platform cpu``);
+  the port's CLI, parallel and export modules import no jax.
 """
 
 import datetime as dt
@@ -42,6 +43,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 RES = os.path.join(ROOT, "tests", "resources")
 FRAME = "ISS030-E-102170_dc"
 MOSAIC = ["--mosaic", "0.25", "--mosaic-extent", "47", "62", "-112", "-91"]
+CPU = ["--platform", "cpu"]  # the port's CLI computes on the card by default
 
 
 def assert_close_defined(a, b, tol=1e-9):
@@ -71,7 +73,7 @@ def mosaic_files(folder2, tmp_path_factory):
     out = tmp_path_factory.mktemp("mosaic_out")
     args = [folder2, *MOSAIC, "--format", "netcdf", "--batched", "2"]
     assert jconvert.main(args + ["--out", str(out / "jax")]) == 0
-    assert convert.main(args + ["--out", str(out / "port")]) == 0
+    assert convert.main(CPU + args + ["--out", str(out / "port")]) == 0
     return [str(out / side / "data2.mosaic.nc") for side in ("port", "jax")]
 
 
@@ -97,10 +99,10 @@ def test_convert_mosaic_matches_jax_cli(folder2, mosaic_files):
     assert (e > 0.05).mean() < 1e-2
 
     # the file's occupied cells are the mosaic's
-    prov = sc.SpacecraftMappingProvider(folder2)
+    prov = sc.SpacecraftMappingProvider(folder2, device="cpu")
     grid = fixed_grid(4.0, 47.0, 62.0, -112.0, -91.0)
     count, _ = parallel.mosaic_sequence(
-        parallel.make_mesh(sp=1), grid, prov.iterParamBursts(batch=2),
+        parallel.make_mesh(sp=1, device="cpu"), grid, prov.iterParamBursts(batch=2),
         batch=2)
     assert np.array_equal(occ, count[:grid.n_lat].numpy() > 0)
 
@@ -108,9 +110,9 @@ def test_convert_mosaic_matches_jax_cli(folder2, mosaic_files):
 def test_convert_mosaic_skip_and_refusals(folder2, mosaic_files, tmp_path):
     out = os.path.dirname(mosaic_files[0])
     args = [folder2, *MOSAIC, "--format", "netcdf", "--out", out]
-    assert convert.main(args) == 0  # exists: skipped
+    assert convert.main(CPU + args) == 0  # exists: skipped
     parsed = convert.build_parser().parse_args([folder2, "--mosaic", "0.25"])
-    assert convert.convert_mosaic(object(), parsed, out) is None
+    assert convert.convert_mosaic(object(), parsed, out, "cpu") is None
 
 
 def test_convert_mosaic_validation_and_early_skip(folder2, tmp_path):
@@ -121,7 +123,7 @@ def test_convert_mosaic_validation_and_early_skip(folder2, tmp_path):
         ["--mosaic", "0.25", "--mosaic-extent", "-10", "10", "170", "-170"],
         ["--mosaic", "0.25", "--mosaic-extent", "62", "47", "-112", "-91"],
     ):
-        assert convert.main([folder2, *extra, "--format", "netcdf",
+        assert convert.main(CPU + [folder2, *extra, "--format", "netcdf",
                              "--out", str(out)]) == 1
     target = out / "data2.mosaic.nc"
     target.write_bytes(b"")
@@ -134,9 +136,10 @@ def test_convert_mosaic_validation_and_early_skip(folder2, tmp_path):
 
     args = convert.build_parser().parse_args(
         [folder2, "--mosaic", "0.25", "--format", "netcdf", "--out", str(out)])
-    assert convert.convert_mosaic(Explosive(), args, str(out)) == str(target)
+    assert convert.convert_mosaic(Explosive(), args, str(out),
+                                  "cpu") == str(target)
     # argument validation still comes first
-    assert convert.main([folder2, "--mosaic", "0", "--format", "netcdf",
+    assert convert.main(CPU + [folder2, "--mosaic", "0", "--format", "netcdf",
                          "--out", str(out)]) == 1
 
 
@@ -144,14 +147,14 @@ def test_iter_param_bursts_refuses_non_uint8(folder2, monkeypatch):
     real_load = sc.load_image
     monkeypatch.setattr(sc, "load_image",
                         lambda p: real_load(p).astype(np.uint16) * 257)
-    prov = sc.SpacecraftMappingProvider(folder2)
+    prov = sc.SpacecraftMappingProvider(folder2, device="cpu")
     with pytest.raises(ValueError, match="uint8"):
         next(prov.iterParamBursts(batch=2))
 
 
 def test_convert_mosaic_premask_and_time_stamp(folder2, tmp_path,
                                                monkeypatch):
-    prov = sc.SpacecraftMappingProvider(folder2)
+    prov = sc.SpacecraftMappingProvider(folder2, device="cpu")
     t0, t1 = prov.timeRange()
     assert t0 is not None and t1 >= t0 and prov.range == (t0, t1)
     after = t1 + dt.timedelta(seconds=1)
@@ -172,7 +175,7 @@ def test_convert_mosaic_premask_and_time_stamp(folder2, tmp_path,
 
     monkeypatch.setattr(parallel, "mosaic_sequence", fake_mosaic_sequence)
     out = tmp_path / "outp"
-    assert convert.main([folder2, *MOSAIC, "--min-elevation", "10",
+    assert convert.main(CPU + [folder2, *MOSAIC, "--min-elevation", "10",
                          "--format", "cdf", "--out", str(out)]) == 0
     assert seen == {"min_elevation": 10.0, "bin_method": "pallas"}
     m = jread_cdf(str(out / "data2.mosaic.cdf"))
@@ -184,7 +187,8 @@ def test_convert_mosaic_premask_and_time_stamp(folder2, tmp_path,
         [folder2, "--mosaic", "0.25",
          "--start", after.strftime("%Y-%m-%dT%H:%M:%S"),
          "--format", "cdf", "--out", str(tmp_path / "outp2")])
-    assert convert.convert_mosaic(prov, args, str(tmp_path / "outp2")) is None
+    assert convert.convert_mosaic(prov, args, str(tmp_path / "outp2"),
+                                  "cpu") is None
 
 
 @pytest.fixture(scope="module")
@@ -211,7 +215,7 @@ def test_convert_per_frame_cdf_matches_jax_cli(small_folder, tmp_path):
     args = [small_folder, "--grid", "geo", "--arcsecperpx", "900",
             "--min-elevation", "10", "--format", "cdf"]
     assert jconvert.main(args + ["--out", str(tmp_path / "jax")]) == 0
-    assert convert.main(args + ["--out", str(tmp_path / "port")]) == 0
+    assert convert.main(CPU + args + ["--out", str(tmp_path / "port")]) == 0
     m, jm = (jread_cdf(str(tmp_path / side / "small.cdf"))
              for side in ("port", "jax"))
     m.checkPlateCarree()
@@ -229,18 +233,19 @@ def test_convert_per_frame_cdf_matches_jax_cli(small_folder, tmp_path):
         for a, b in zip(ours, theirs):
             assert_close_defined(a.data, b.data)
     # skip-existing, and the unported branches refuse plainly
-    assert convert.main(args + ["--out", str(tmp_path / "port")]) == 0
+    assert convert.main(CPU + args + ["--out", str(tmp_path / "port")]) == 0
     with pytest.raises(NotImplementedError, match="resample_mlat_mlt"):
-        convert.main([small_folder, "--grid", "mag", "--out",
+        convert.main(CPU + [small_folder, "--grid", "mag", "--out",
                       str(tmp_path / "mag")])
     (tmp_path / "asi").mkdir()
     (tmp_path / "asi" / "cal.txt").write_text("")
     with pytest.raises(NotImplementedError, match="item 9"):
-        convert.main([str(tmp_path / "asi")])
+        convert.main(CPU + [str(tmp_path / "asi")])
 
 
 def test_provider_batched_and_masking(small_folder):
-    prov = sc.SpacecraftMappingProvider(small_folder, fast_center=True)
+    prov = sc.SpacecraftMappingProvider(small_folder, fast_center=True,
+                                        device="cpu")
     (m64,) = prov.getSequence()
     (m32,) = prov.getSequenceBatched(batch=4)
     assert prov.getById("small").identifier == m64.identifier == "small"
@@ -260,10 +265,14 @@ def test_provider_batched_and_masking(small_folder):
     assert prov.get(m64.photoTime).identifier == "small"
 
 
-def test_platform_cuda_without_a_card_exits_nonzero(small_folder):
+@pytest.mark.parametrize("platform", [["--platform", "cuda"], []],
+                         ids=["cuda", "default"])
+def test_platform_cuda_without_a_card_exits_nonzero(small_folder, platform):
+    """``--platform cuda``, and no ``--platform`` (cuda is the default),
+    fail without a card; nothing falls back to the CPU."""
     env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
     res = run_port("-m", "auromat_tpu_torch.cli.convert", small_folder,
-                   "--platform", "cuda", "--out", small_folder, env=env)
+                   *platform, "--out", small_folder, env=env)
     assert res.returncode != 0
     assert "cuda" in res.stderr and "wrote" not in res.stdout
 

@@ -1,0 +1,131 @@
+"""The port's public entry points compute on the card unless asked not to.
+
+Each one, called without ``device`` where torch finds no CUDA device,
+raises (``ops.georef.compute_device``); nothing falls back to the CPU.
+``DynGeorefParams.from_static`` and ``.stack`` take ``device`` as a
+required argument. ``torch.cuda.is_available`` is patched to False so that
+the tests mean the same on a machine with a card.
+"""
+
+import os
+from types import SimpleNamespace
+
+import numpy as np
+import pytest
+import torch
+
+from auromat_tpu_torch.cli import convert
+from auromat_tpu_torch.coordinates.wcs import TanWcs
+from auromat_tpu_torch.entry import entry, frame_setup
+from auromat_tpu_torch.io import fits
+from auromat_tpu_torch.mapping.astrometry import create_mapping
+from auromat_tpu_torch.mapping.spacecraft import (SpacecraftMappingProvider,
+                                                  get_mapping,
+                                                  get_mapping_batch)
+from auromat_tpu_torch.ops.georef import (DynGeorefParams, GeorefParams,
+                                          georeference)
+from auromat_tpu_torch.parallel import global_mesh, initialize, make_mesh
+from auromat_tpu_torch.resample import resample
+
+RES = os.path.join(os.path.dirname(__file__), "resources")
+WCS = os.path.join(RES, "ISS030-E-102170_dc.wcs")
+
+
+def small_header(w=128, h=96):
+    """The real frame's calibration scaled to (h, w) pixels."""
+    header = fits.read_header(WCS)
+    scale = header["IMAGEW"] / w
+    for k in ("CD1_1", "CD1_2", "CD2_1", "CD2_2"):
+        header[k] = header[k] * scale
+    header["CRPIX1"] /= scale
+    header["CRPIX2"] /= scale
+    header["IMAGEW"], header["IMAGEH"] = w, h
+    return header
+
+
+@pytest.fixture(scope="module")
+def small():
+    """(header, image, camera position, photo time, params, CPU mapping)."""
+    header = small_header()
+    pos = np.array(fits.get_shifted_spacecraft_position(header)[:3])
+    t = fits.get_shifted_photo_time(header)
+    img = np.random.default_rng(0).integers(0, 256, (96, 128, 3), np.uint8)
+    params = GeorefParams.from_wcs(TanWcs(header), pos, t)
+    m = create_mapping(header, img, pos, t, identifier="small", device="cpu")
+    return SimpleNamespace(header=header, img=img, pos=pos, t=t,
+                           params=params, mapping=m)
+
+
+@pytest.fixture
+def no_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def _mosaic_args(tmp):
+    return convert.build_parser().parse_args(
+        [str(tmp), "--mosaic", "1", "--out", str(tmp)])
+
+
+def _geo_args(tmp):
+    return convert.build_parser().parse_args(
+        [str(tmp), "--grid", "geo", "--out", str(tmp)])
+
+
+class _Bursts:
+    iterParamBursts = None  # --mosaic's capability probe
+
+
+ENTRY_POINTS = {
+    "resample": lambda s, tmp: resample(s.mapping, px_per_deg=3),
+    "create_mapping": lambda s, tmp: create_mapping(s.header, s.img, s.pos,
+                                                    s.t),
+    "get_mapping": lambda s, tmp: get_mapping(str(tmp / "x.png"), WCS),
+    "SpacecraftMappingProvider": lambda s, tmp: SpacecraftMappingProvider(
+        str(tmp)),
+    "get_mapping_batch": lambda s, tmp: get_mapping_batch(
+        [(str(tmp / "x.png"), WCS)]),
+    "georeference": lambda s, tmp: georeference(s.params),
+    "make_mesh": lambda s, tmp: make_mesh(),
+    "global_mesh": lambda s, tmp: global_mesh(),
+    "initialize": lambda s, tmp: initialize(),
+    "entry": lambda s, tmp: entry(),
+    "frame_setup": lambda s, tmp: frame_setup(),
+    "convert.make_provider": lambda s, tmp: convert.make_provider(
+        "spacecraft", str(tmp), 110.0),
+    "convert.convert_mapping": lambda s, tmp: convert.convert_mapping(
+        s.mapping, _geo_args(tmp), str(tmp)),
+    "convert.convert_mosaic": lambda s, tmp: convert.convert_mosaic(
+        _Bursts(), _mosaic_args(tmp), str(tmp)),
+    "convert.platform_device": lambda s, tmp: convert.platform_device(
+        _geo_args(tmp).platform),
+}
+
+
+@pytest.mark.parametrize("name", sorted(ENTRY_POINTS))
+def test_entry_point_without_device_raises_without_a_card(small, no_card,
+                                                           tmp_path, name):
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ENTRY_POINTS[name](small, tmp_path)
+    assert not list(tmp_path.iterdir())  # nothing written
+
+
+def test_dyn_params_need_a_device(small, no_card):
+    with pytest.raises(TypeError):
+        DynGeorefParams.from_static(small.params)
+    with pytest.raises(TypeError):
+        DynGeorefParams.stack([small.params])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        DynGeorefParams.from_static(small.params, "cuda")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        DynGeorefParams.stack([small.params], device="cuda")
+    d = DynGeorefParams.stack([small.params] * 2, device="cpu")
+    assert d.cd.device.type == "cpu" and tuple(d.cd.shape) == (2, 2, 2)
+
+
+def test_platform_choices():
+    parser = convert.build_parser()
+    assert parser.parse_args(["f"]).platform == "cuda"
+    assert parser.parse_args(["f", "--platform", "cpu"]).platform == "cpu"
+    with pytest.raises(SystemExit):  # no value picks the CPU unasked
+        parser.parse_args(["f", "--platform", "default"])
+    assert convert.platform_device("cpu") == torch.device("cpu")

@@ -27,6 +27,13 @@ only the port is installed:
 * The grid-sharded mosaic step on the card: K1 == its plain version bit
   for bit, one launch per burst, and the CPU's result within the bounds
   above.
+* The tile histograms' paths: seeded random indices over the whole grid
+  (every tile's cell box overflows shared memory: the warp-aggregated
+  fallback), ragged planes (w not a multiple of 4 or of the 128-column
+  tile, one row, no valid sample, bases off the 16-byte vector alignment),
+  all bit-equal to the plain versions for K1, K1-i8, K2 (every mode) and
+  K3; and the refusals (a cell past MAX_CELL_COUNT, an out-of-range K2
+  channel) raise the plain version's message.
 """
 
 import os
@@ -264,7 +271,7 @@ def test_resample_gpu_matches_cpu(cuda):
     img = np.random.default_rng(3).integers(0, 256, (384, 512, 3), dtype=np.uint8)
     m = create_mapping(header, img, fits.get_shifted_spacecraft_position(header)[:3],
                        fits.get_shifted_photo_time(header), device=cuda)
-    want = resample(m, px_per_deg=5)
+    want = resample(m, px_per_deg=5, device="cpu")
     for method, kernel in (("auto", _kernels.GEOREGRID_BIN),
                            ("pallas_taint", _kernels.REGRID_BIN)):
         before = kernel.launches
@@ -353,3 +360,176 @@ def test_grid_sharded_step_on_cuda(cuda):
     assert np.abs(d).max() <= 1 and (d != 0).mean() < 1e-2
     ok = ((d == 0) & (c > 0))[..., None] & ~np.isnan(cm)
     assert_allclose(m[ok], cm[ok], rtol=1e-3, atol=0.05)
+
+
+def all_kernels(g, iy, ix, img, elev, data):
+    """(name, kernel result, plain result) of K1, K1-i8, K2 in every mode
+    and K3's plain twin, on the same CUDA tensors; ``img`` (3, n, w)
+    integer-valued, ``data`` (n, w, 4) = image + elevation."""
+    out = []
+    for compute in ("bf16", "i8"):
+        out.append((f"K1 {compute}",
+                    bin_rgbelev_from_indices(g, iy, ix, img, elev, compute),
+                    bin_rgbelev_plain(g, iy, ix, img, elev, compute)))
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    shape = tuple(iy.shape)
+    kinds = {"uint8": data,
+             "taint": torch.cat([data[..., :3], (torch.rand(
+                 shape + (4,), generator=gen, device="cuda") < 0.3).float(),
+                 data[..., 3:]], -1),
+             "full": torch.rand(shape + (2,), generator=gen,
+                                device="cuda") * 65535.0,
+             "raw": (torch.rand(shape + (3,), generator=gen, device="cuda")
+                     * 200 - 100).to(torch.bfloat16).float()}
+    for kind, d in kinds.items():
+        mode = "uint8" if kind == "taint" else kind
+        d = d.contiguous()
+        out.append((f"K2 {kind}",
+                    rp.bin_partial_pallas_cw(g, (iy, ix), d, d.shape[-1], mode),
+                    rp.bin_partial_cw_plain(g, iy, ix, d, mode)))
+    return out
+
+
+def assert_all_equal(results, n_valid):
+    torch.cuda.synchronize()
+    for name, (kc, ks), (pc, ps) in results:
+        assert torch.equal(kc, pc), name
+        assert torch.equal(ks, ps), name
+        assert int(kc.sum(dtype=torch.float64).item()) == n_valid, name
+
+
+def random_inputs(g, shape, seed, offset=0):
+    """Seeded iy, ix over the whole grid (10% invalid, some past its edge),
+    image and elevation (some NaN) on the card; ``offset`` > 0 cuts every
+    tensor from a buffer that many elements in, off the vector alignment."""
+    rng = np.random.default_rng(seed)
+    iy = rng.integers(0, g.n_lat, shape)
+    ix = rng.integers(0, g.n_lon + 2, shape)
+    iy[rng.random(shape) < 0.1] = -1
+    img = rng.integers(0, 256, (3,) + shape).astype(np.float32)
+    elev = rng.uniform(-90, 90, shape).astype(np.float32)
+    elev[rng.random(shape) < 0.01] = np.nan
+
+    def dev(a, dtype):
+        flat = torch.zeros(a.size + offset, dtype=dtype, device="cuda")
+        t = flat[offset:].view(a.shape)
+        t.copy_(torch.from_numpy(np.ascontiguousarray(a)))
+        return t
+
+    iy, ix = dev(iy, torch.int32), dev(ix, torch.int32)
+    img, elev = dev(img, torch.float32), dev(elev, torch.float32)
+    data = dev(np.concatenate([np.moveaxis(img.cpu().numpy(), 0, -1),
+                               elev.cpu().numpy()[..., None]], -1),
+               torch.float32)
+    valid = (iy >= 0) & (iy < g.n_lat) & (ix >= 0) & (ix < g.n_lon)
+    return iy, ix, img, elev, data, int(valid.sum().item())
+
+
+@pytest.mark.gpu
+def test_kernels_fallback_path_random_cells(cuda):
+    """Random cells over the 539x524 grid: every tile's box is the whole
+    grid, far past shared memory, so every tile takes the fallback."""
+    iy, ix, img, elev, data, n_valid = random_inputs(GRID, (2832, 4256), 0)
+    assert n_valid > 10_000_000
+    assert_all_equal(all_kernels(GRID, iy, ix, img, elev, data), n_valid)
+    # K3's entry, from seeded coordinates over the grid's extent
+    rng = np.random.default_rng(6)
+    lat = torch.from_numpy(rng.uniform(46.9, 62.1, (2832, 4256))).cuda()
+    lon = torch.from_numpy(rng.uniform(-112.1, -90.9, (2832, 4256))).cuda()
+    before = _kernels.REGRID_BIN_V1.launches
+    got = rp.bin_partial_pallas(GRID, lat, lon, data, "uint8")
+    want = rp.bin_partial_pallas_plain(GRID, lat, lon, data, "uint8")
+    assert_all_equal([("K3", got, want)],
+                     int((bin_indices(GRID, lat, lon)[1]).sum().item()))
+    assert _kernels.REGRID_BIN_V1.launches == before + 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,offset", [
+    ((96, 131), 0), ((37, 4257), 0), ((1, 4256), 0), ((1, 3), 0),
+    ((64, 256), 1), ((33, 130), 2)],
+    ids=["w131", "w4257", "one-row", "one-row-w3", "unaligned",
+         "unaligned-w130"])
+def test_kernels_ragged_planes(cuda, shape, offset):
+    iy, ix, img, elev, data, n_valid = random_inputs(
+        fixed_grid((2.0, 1.0), 0.05, 19.95, 0.5, 129.5), shape, 1, offset)
+    g = fixed_grid((2.0, 1.0), 0.05, 19.95, 0.5, 129.5)
+    assert_all_equal(all_kernels(g, iy, ix, img, elev, data), n_valid)
+
+
+@pytest.mark.gpu
+def test_kernels_no_valid_sample(cuda):
+    iy, ix, img, elev, data, _ = random_inputs(GRID, (64, 512), 2)
+    iy.fill_(-1)
+    results = all_kernels(GRID, iy, ix, img, elev, data)
+    assert_all_equal(results, 0)
+    for name, (kc, ks), _ in results:
+        assert not kc.any() and not ks.any(), name
+
+
+@pytest.mark.gpu
+def test_kernels_fast_and_fallback_tiles_mixed(full_frame):
+    """The frame's own cells (fast path), with one band of rows moved to
+    random cells (fallback) and a burst of two frames whose tiles straddle
+    the frame boundary (2832 is not a multiple of the 32-row tile)."""
+    grid, iy, ix, _, _, elev = full_frame
+    rng = np.random.default_rng(9)
+    iy2, ix2 = iy.clone(), ix.clone()
+    rows = slice(1000, 1100)
+    iy2[rows] = torch.from_numpy(rng.integers(0, grid.n_lat, (100, iy.shape[1]))
+                                 .astype(np.int32)).cuda()
+    ix2[rows] = torch.from_numpy(rng.integers(0, grid.n_lon, (100, iy.shape[1]))
+                                 .astype(np.int32)).cuda()
+    iyb, ixb = torch.cat([iy, iy2]), torch.cat([ix, ix2])
+    elb = torch.cat([elev, elev])
+    g = torch.Generator(device="cuda").manual_seed(3)
+    img = torch.floor(torch.rand((3,) + tuple(iyb.shape), generator=g,
+                                 device="cuda") * 256)
+    data = torch.cat([img.permute(1, 2, 0), elb[..., None]], -1).contiguous()
+    n_valid = int((iyb >= 0).sum().item())
+    assert_all_equal(all_kernels(grid, iyb, ixb, img, elb, data), n_valid)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("w", [2, 4096], ids=["fast", "fallback"])
+def test_k1_cell_count_refusal_matches_plain(cuda, w):
+    """MAX_CELL_COUNT + 1 samples in one cell (w=2: every tile's box is
+    that one cell; w=4096: a sample in a far cell on every row spreads
+    each tile's box past shared memory) raise the plain version's message."""
+    from auromat_tpu_torch.ops.georegrid import MAX_CELL_COUNT
+
+    g = fixed_grid((2.0, 1.0), 0.05, 19.95, 0.5, 129.5)
+    n = -(-(MAX_CELL_COUNT + 1) // (w if w == 2 else w - 1))
+    iy = torch.zeros((n, w), dtype=torch.int32, device=cuda)
+    ix = torch.zeros_like(iy)
+    if w > 2:
+        ix[:, 0] = 100
+        iy[:, 0] = 30
+    img = torch.full((3, n, w), 255.0, device=cuda)
+    elev = torch.zeros((n, w), device=cuda)
+    msgs = []
+    for fn in (bin_rgbelev_from_indices, bin_rgbelev_plain):
+        with pytest.raises(ValueError, match="overflow") as e:
+            fn(g, iy, ix, img, elev)
+        msgs.append(str(e.value))
+    assert msgs[0] == msgs[1]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode,value", [("uint8", 0.5), ("uint8", 256.0),
+                                        ("full", 65536.0), ("raw", 1.0001),
+                                        ("raw", 2.0 ** 60)])
+def test_k2_refusals_match_plain(cuda, mode, value):
+    iy, ix, _, _, data, _ = random_inputs(GRID, (64, 512), 4)
+    d = data if mode == "uint8" else torch.round(data[..., :2])
+    d = d.clone()
+    iy[10, 10], ix[10, 10] = 3, 3
+    d[10, 10, 0] = value
+    msgs = []
+    for fn in (lambda: rp.bin_partial_pallas_cw(GRID, (iy, ix), d,
+                                                d.shape[-1], mode),
+               lambda: rp.bin_partial_cw_plain(GRID, iy, ix, d, mode)):
+        with pytest.raises(ValueError) as e:
+            fn()
+        msgs.append(str(e.value))
+    assert msgs[0] == msgs[1]

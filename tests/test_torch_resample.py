@@ -64,8 +64,9 @@ def full_pair():
     golden = np.load(os.path.join(RES, f"golden_resample_{FULL}.npz"))
     m = get_mapping(os.path.join(RES, f"{FULL}.jpg"),
                     os.path.join(RES, f"{FULL}.wcs"),
-                    altitude=float(golden["altitude"]))
-    return golden, m, resample(m, px_per_deg=float(golden["px_per_deg"]))
+                    altitude=float(golden["altitude"]), device="cpu")
+    return golden, m, resample(m, px_per_deg=float(golden["px_per_deg"]),
+                               device="cpu")
 
 
 # -- 1. outline ---------------------------------------------------------------
@@ -123,7 +124,8 @@ def test_outline_equals_opencv_full_frames(full_pair):
     h = tfits.read_header(os.path.join(RES, "ISS029-E-8492.wcs"))
     pos, t, _ = resolve_camera_position(h)
     p = GeorefParams.from_wcs(TanWcs(h), pos, t)
-    lats = georeference(p, fast_center=True, with_mlatmlt=False)["lats"].numpy()
+    lats = georeference(p, fast_center=True, with_mlatmlt=False,
+                        device="cpu")["lats"].numpy()
     defined = ~np.isnan(lats)
     assert defined.any() and not defined.all()
     assert np.array_equal(tutils.outline(defined), jutils.outline(defined))
@@ -170,12 +172,12 @@ def test_georeference_matches_jax(fast_center):
     jp, _ = small_params()
     tp = GeorefParams(**dataclasses.asdict(jp))
     want = jgeoreference(jp, fast_center, True, jnp.float64)
-    got = georeference(tp, fast_center, True, torch.float64)
+    got = georeference(tp, fast_center, True, torch.float64, "cpu")
     assert set(got) == set(want)
     for k in want:
         assert got[k].dtype == torch.float64
         assert_close_masked(got[k].numpy(), want[k])
-    df = georeference(tp, fast_center, True, "df64")
+    df = georeference(tp, fast_center, True, "df64", "cpu")
     assert all(np.array_equal(df[k].numpy(), got[k].numpy(), equal_nan=True)
                for k in got)
 
@@ -191,7 +193,7 @@ def small_mappings():
         out[fc] = (jcreate_mapping(jh, img, pos, t, identifier="small",
                                    fast_center=fc),
                    create_mapping(th, img, pos, t, identifier="small",
-                                  fast_center=fc))
+                                  fast_center=fc, device="cpu"))
     return out
 
 
@@ -231,7 +233,7 @@ def jax_pallas_interpret(monkeypatch):
 def test_resample_matches_jax(small_mappings, jax_pallas_interpret, bin_method):
     jm, m = small_mappings[False]
     want = jresample(jm, px_per_deg=3, bin_method=bin_method)
-    got = resample(m, px_per_deg=3, bin_method=bin_method)
+    got = resample(m, px_per_deg=3, bin_method=bin_method, device="cpu")
     assert isinstance(got, Mapping)
     for name in ("lats", "lons", "latsCenter", "lonsCenter"):
         assert_close_masked(getattr(got, name).data, getattr(want, name).data)
@@ -252,16 +254,17 @@ def test_resample_collection_and_refusals(small_mappings):
     from auromat_tpu_torch.mapping.mapping import MappingCollection
 
     _, m = small_mappings[True]
-    col = resample(MappingCollection([m, m], "pair"), px_per_deg=3)
-    one = resample(m, px_per_deg=3)
+    col = resample(MappingCollection([m, m], "pair"), px_per_deg=3,
+                   device="cpu")
+    one = resample(m, px_per_deg=3, device="cpu")
     assert len(col) == 2 and col.identifier == "pair"
     assert np.array_equal(col.mappings[1].img, one.img)
     with pytest.raises(NotImplementedError, match="item 9"):
-        resample(m, method="nearest")
+        resample(m, method="nearest", device="cpu")
     with pytest.raises(KeyError):
-        resample(m, bin_method="pallas")
+        resample(m, bin_method="pallas", device="cpu")
     with pytest.raises(ValueError):
-        resample(m.img)
+        resample(m.img, device="cpu")
 
 
 @pytest.mark.parametrize("shift", [False, True])
@@ -305,7 +308,7 @@ def test_synthetic_paths_match_golden(name):
     assert np.array_equal(m.outline, jm.outline)
     assert box(m.boundingBox) == box(jm.boundingBox)
     r = resample(m, px_per_deg=float(golden["px_per_deg"]),
-                 contains_pole=bool(golden["contains_pole"]))
+                 contains_pole=bool(golden["contains_pole"]), device="cpu")
     _gate_grids(r, golden, tol=1e-8)
     _gate_binning(r, golden)
     elev = np.asarray(r.elevation.filled(np.nan))

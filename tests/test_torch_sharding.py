@@ -172,11 +172,11 @@ def test_k1_refuses_what_could_wrap():
 
 def test_stack_and_frame_equal_per_frame_params(burst):
     _, tparams, _, carried, _ = burst
-    dyn = DynGeorefParams.stack(tparams, dtype=torch.float32)
+    dyn = DynGeorefParams.stack(tparams, dtype=torch.float32, device="cpu")
     assert dyn.cd.shape == (B, 2, 2) and dyn.camera_pos.shape == (B, 3)
     assert dyn.px_ref.shape == (B,)
     for i, p in enumerate(tparams):
-        want = DynGeorefParams.from_static(p, dtype=torch.float32)
+        want = DynGeorefParams.from_static(p, "cpu", dtype=torch.float32)
         for a, b, c in zip(dyn.frame(i), want, carried.frame(i)):
             assert torch.equal(a, b) and torch.equal(a, c)
 
@@ -186,7 +186,7 @@ def test_stack_and_frame_equal_per_frame_params(burst):
 def test_grid_sharded_step_matches_jax_sorted(burst):
     jparams, _, jdyn, dyn, imgs = burst
     h, w = imgs.shape[1:3]
-    mesh = make_mesh()
+    mesh = make_mesh(device="cpu")
     grid = fixed_grid(*GLOBAL)
     want = jax_np(grid, jpar.make_grid_sharded_mosaic_step(
         jmesh1(), jfixed_grid(*GLOBAL), h, w)(jdyn, imgs))
@@ -206,7 +206,7 @@ def test_grid_sharded_step_matches_jax_pallas_interpret(burst):
     want = jax_np(grid, jpar.make_grid_sharded_mosaic_step(
         jmesh1(), jfixed_grid(*REGION), h, w, bin_method="pallas",
         interpret=True)(jdyn, imgs))
-    mesh = make_mesh()
+    mesh = make_mesh(device="cpu")
     got = make_grid_sharded_mosaic_step(mesh, grid, h, w,
                                         bin_method="pallas")(dyn, imgs)
     assert_mosaic_close(port_np(mesh, grid, got), want)
@@ -251,7 +251,7 @@ def test_grid_sharded_step_fed_jax_latlon_is_exact(burst, fed_jax_georef):
     the JAX package's own binning (``bin_partial``, 'sorted') does."""
     _, _, _, dyn, imgs = burst
     h, w = imgs.shape[1:3]
-    mesh = make_mesh()
+    mesh = make_mesh(device="cpu")
     for args in (GLOBAL, REGION):
         grid, jgrid = fixed_grid(*args), jfixed_grid(*args)
         jc = js = 0.0
@@ -277,7 +277,7 @@ def test_grid_sharded_step_fed_jax_latlon_is_exact(burst, fed_jax_georef):
 def test_k1_and_index_add_branches_agree(burst):
     _, _, _, dyn, imgs = burst
     h, w = imgs.shape[1:3]
-    mesh = make_mesh()
+    mesh = make_mesh(device="cpu")
     grid = fixed_grid(*GLOBAL)
     out = {m: make_grid_sharded_mosaic_step(mesh, grid, h, w, bin_method=m)(
         dyn, imgs) for m in ("pallas", "pallas_plain", "sorted", "segment")}
@@ -299,10 +299,10 @@ def test_sharded_mosaic_step_matches_jax(burst):
     grid = fixed_grid(*REGION)
     want = tuple(np.asarray(t) for t in jpar.make_sharded_mosaic_step(
         jmesh1(), jfixed_grid(*REGION), h, w)(jdyn, imgs))
-    c, m = make_sharded_mosaic_step(make_mesh(), grid, h, w)(dyn, imgs)
+    c, m = make_sharded_mosaic_step(make_mesh(device="cpu"), grid, h, w)(dyn, imgs)
     assert c.shape == (grid.n_lat, grid.n_lon) and c.dtype == torch.float32
     assert_mosaic_close((c.numpy(), m.numpy()), want)
-    gc, _ = make_grid_sharded_mosaic_step(make_mesh(), grid, h, w,
+    gc, _ = make_grid_sharded_mosaic_step(make_mesh(device="cpu"), grid, h, w,
                                           bin_method="pallas")(dyn, imgs)
     assert torch.equal(gc[:grid.n_lat], c)
 
@@ -313,9 +313,9 @@ def test_sharded_batch_georef_matches_jax(burst):
     want = jpar.sharded_batch_georef(jmesh1(), h, w, dtype=jnp.float64,
                                      with_mlatmlt=True)(
         JaxDyn.stack(jparams, dtype=jnp.float64))
-    got = sharded_batch_georef(make_mesh(), h, w, dtype=torch.float64,
+    got = sharded_batch_georef(make_mesh(device="cpu"), h, w, dtype=torch.float64,
                                with_mlatmlt=True)(
-        DynGeorefParams.stack(tparams, dtype=torch.float64))
+        DynGeorefParams.stack(tparams, dtype=torch.float64, device="cpu"))
     assert set(got) == set(want) == {"lat", "lon", "elevation", "mlat", "mlt"}
     for k, v in want.items():
         v = np.asarray(v)
@@ -331,7 +331,7 @@ def test_sharded_batch_georef_matches_jax(burst):
 def test_mosaic_sequence_multi_burst_equals_one_step(burst):
     jparams, tparams, jdyn, dyn, imgs = burst
     h, w = imgs.shape[1:3]
-    mesh = make_mesh()
+    mesh = make_mesh(device="cpu")
     grid = fixed_grid(*GLOBAL)
     one = make_grid_sharded_mosaic_step(mesh, grid, h, w,
                                         bin_method="pallas")(dyn, imgs)
@@ -352,14 +352,14 @@ def test_mosaic_sequence_multi_burst_equals_one_step(burst):
 def test_null_frames_contribute_nothing(burst):
     _, tparams, _, _, imgs = burst
     null = null_georef_params(tparams[0])
-    dyn = DynGeorefParams.from_static(null, dtype=torch.float32)
+    dyn = DynGeorefParams.from_static(null, "cpu", dtype=torch.float32)
     px = torch.arange(null.width, dtype=torch.float32)[None].expand(
         null.height, null.width)
     py = torch.arange(null.height, dtype=torch.float32)[:, None].expand(
         null.height, null.width)
     out = georef_latlon_dyn(dyn, px, py, with_elevation=True)
     assert torch.isnan(out["lat"]).all() and torch.isnan(out["lon"]).all()
-    mesh = make_mesh()
+    mesh = make_mesh(device="cpu")
     grid = fixed_grid(*GLOBAL)
     c, _ = mosaic_sequence(mesh, grid, [([null] * 2, imgs[:2] + 1.0)], batch=2)
     assert c.sum() == 0
@@ -369,7 +369,7 @@ def test_min_elevation_premask(burst):
     jparams, tparams, jdyn, dyn, imgs = burst
     h, w = imgs.shape[1:3]
     thr = 20.0
-    mesh = make_mesh()
+    mesh = make_mesh(device="cpu")
     grid = fixed_grid(*GLOBAL)
     n_keep = 0
     for i in range(B):
@@ -398,7 +398,7 @@ def test_nan_imagery_adds_zero(burst):
     h, w = imgs.shape[1:3]
     imgs = imgs.copy()
     imgs[:, 40:50, :, 1] = np.nan
-    mesh = make_mesh()
+    mesh = make_mesh(device="cpu")
     grid = fixed_grid(*GLOBAL)
     want = jax_np(grid, jpar.make_grid_sharded_mosaic_step(
         jmesh1(), jfixed_grid(*GLOBAL), h, w)(jdyn, imgs))
@@ -420,12 +420,12 @@ def test_mesh_and_step_contract(burst):
     _, tparams, _, dyn, imgs = burst
     h, w = imgs.shape[1:3]
     grid = fixed_grid(*GLOBAL)
-    mesh = make_mesh()
+    mesh = make_mesh(device="cpu")
     assert (mesh.dp, mesh.sp, mesh.rank, mesh.size) == (1, 1, 0, 1)
     assert sharding.factorise(8) == (4, 2) and sharding.factorise(2) == (2, 1)
     assert sharding.factorise(4, sp=4) == (1, 4)
     with pytest.raises(ValueError, match="ranks"):
-        make_mesh(dp=2)
+        make_mesh(dp=2, device="cpu")
     two = Mesh(dp=2, sp=1, rank=0, device=torch.device("cpu"))
     step = make_grid_sharded_mosaic_step(two, grid, h, w, bin_method="pallas")
     with pytest.raises(ValueError, match="dp=2"):
