@@ -12,10 +12,15 @@ into ONE file.
     torchrun --nproc_per_node=N -m auromat_tpu_torch.cli.convert FOLDER \
         --mosaic 0.05 --platform cuda      # one GPU per process
 
+    python -m auromat_tpu_torch.cli.convert THEMIS_FOLDER --grid geo
+
 Under ``torchrun`` every rank streams the sequence, bins its share of each
-burst's frames on its own GPU, and rank 0 writes the file. Spacecraft
-folders (image + .wcs pairs) only: the ISS archive, THEMIS and MIRACLE
-providers are not ported yet (ROADMAP.md queue 1 item 9).
+burst's frames on its own GPU, and rank 0 writes the file. Source types:
+spacecraft folders (image + .wcs pairs), THEMIS L1/L2 CDF caches (offline:
+nothing is downloaded) and MIRACLE folders (images + cal.txt); a THEMIS or
+MIRACLE tick is a MappingCollection, and each member becomes one file. The
+ISS archive provider is not ported yet (ROADMAP.md queue 1 item 10), and
+``--grid mag`` waits for ``resample_mlat_mlt``.
 """
 
 import argparse
@@ -50,10 +55,20 @@ def make_provider(source_type, folder, altitude, fast_center=True,
         return SpacecraftMappingProvider(folder, folder, altitude=altitude,
                                          fast_center=fast_center,
                                          device=device)
-    if source_type in ("iss", "themis", "miracle"):
+    if source_type == "themis":
+        from auromat_tpu_torch.mapping.themis import ThemisMappingProvider
+
+        return ThemisMappingProvider(folder, folder, altitude=altitude,
+                                     offline=True, device=device)
+    if source_type == "miracle":
+        from auromat_tpu_torch.mapping.miracle import MIRACLEMappingProvider
+
+        return MIRACLEMappingProvider(folder, altitude=altitude,
+                                      device=device)
+    if source_type == "iss":
         raise NotImplementedError(
-            f"the {source_type} mapping provider is not ported yet (ROADMAP.md "
-            "queue 1 item 9); only spacecraft folders (image + .wcs pairs) are")
+            "the iss mapping provider is not ported yet (ROADMAP.md queue 1 "
+            "item 10: it needs util/lensdistortion and raw decoding)")
     raise ValueError(source_type)
 
 
@@ -242,7 +257,7 @@ def main(argv=None):
     print(f"detected source type: {source_type}")
     provider = make_provider(source_type, args.folder, args.altitude,
                              device=device)
-    if args.precision == "float32":
+    if args.precision == "float32" and hasattr(provider, "dtype"):
         provider.dtype = torch.float32
     out_folder = args.out or args.folder
     os.makedirs(out_folder, exist_ok=True)
@@ -250,16 +265,24 @@ def main(argv=None):
     if args.mosaic is not None:
         return 0 if convert_mosaic(provider, args, out_folder, device) else 1
 
-    if args.batched:
+    if args.batched and hasattr(provider, "getSequenceBatched"):
         seq = provider.getSequenceBatched(args.start, args.end,
                                           batch=args.batched,
                                           with_mlatmlt=not args.without_mag)
     else:
+        if args.batched:
+            print("warning: --batched unsupported for this source; using the "
+                  "per-frame path", file=sys.stderr)
         seq = provider.getSequence(args.start, args.end)
+    from auromat_tpu_torch.mapping.mapping import MappingCollection
+
     count = 0
-    for mapping in seq:
-        convert_mapping(mapping, args, out_folder, device)
-        count += 1
+    for item in seq:
+        members = (item.mappings if isinstance(item, MappingCollection)
+                   else [item])
+        for mapping in members:
+            convert_mapping(mapping, args, out_folder, device)
+            count += 1
     print(f"converted {count} mappings")
     return 0
 

@@ -1,5 +1,6 @@
 """Coordinate conversions as torch tensor code (counterpart of
-``auromat_tpu.coordinates.transform``): the geodetic <-> ECEF pair, the
+``auromat_tpu.coordinates.transform``): the geodetic <-> ECEF pair (and
+the ground-level ``geodetic_to_ecef_zero`` of the all-sky stations), the
 rigid pole rotation that resampling uses to move a footprint off a pole,
 and ECEF -> MLat/MLT. Each function computes in the dtype and on the
 device of its inputs; the callers pass float64.
@@ -25,6 +26,24 @@ def geodetic_to_ecef(lat, lon, h, a=WGS84_A, b=WGS84_B):
     y = nh * torch.sin(lon)
     z = (n * (1.0 - e2) + h) * sin_lat
     return x, y, z
+
+
+def geodetic_to_ecef_zero(lat, lon, a=WGS84_A, b=WGS84_B):
+    """:func:`geodetic_to_ecef` with h=0 (reference: transform.py:180-197)."""
+    e2 = (a * a - b * b) / (a * a)
+    sin_lat = torch.sin(lat)
+    n = a / torch.sqrt(1.0 - e2 * sin_lat * sin_lat)
+    nc = n * torch.cos(lat)
+    return nc * torch.cos(lon), nc * torch.sin(lon), n * (1.0 - e2) * sin_lat
+
+
+def station_ecef(lat_deg, lon_deg):
+    """Ground-level ECEF (km) of a station at geodetic degrees, as a host
+    float64 (3,) array (:func:`geodetic_to_ecef_zero` on CPU float64)."""
+    xyz = geodetic_to_ecef_zero(
+        torch.tensor(np.deg2rad(lat_deg), dtype=torch.float64),
+        torch.tensor(np.deg2rad(lon_deg), dtype=torch.float64))
+    return np.array([float(v) for v in xyz])
 
 
 def ecef_to_geodetic(x, y, z, a=WGS84_A, b=WGS84_B):

@@ -1,7 +1,9 @@
 """Host geometry utilities (numpy), counterpart of ``auromat_tpu.utils``.
 
-The parts the mapping data model and resampling need: the outline of a
-binary image, its convex hull, and the longitude wrap.
+The parts the mapping data model, resampling and the all-sky providers
+need: the outline of a binary image, its convex hull, point-in-polygon,
+polygon area and centroid, the nearest element of a sorted array, and the
+longitude wrap.
 
 ``outline`` is a numpy border follower, not OpenCV: the card's machine
 has no cv2. It reproduces ``cv2.findContours(RETR_EXTERNAL,
@@ -11,9 +13,13 @@ border marks), so its output is array-equal to the JAX package's
 ``utils.outline``, start point and orientation included —
 ``Mapping.boundingBox`` samples the convex hull of that outline by index.
 
+``points_inside_polygon`` is numpy, not matplotlib (the card's machine has
+none either): the crossing test of matplotlib's ``point_in_path``, with
+the same predicates in the same float64 arithmetic, so its answer is
+array-equal to ``matplotlib.path.Path.contains_points``.
+
 Not ported: ``host_f64_device`` (a TPU workaround; the port computes host
-float64 with numpy or CPU torch directly) and ``points_inside_polygon``
-(matplotlib; only the interpolation resample methods use it).
+float64 with numpy or CPU torch directly).
 """
 
 import numpy as np
@@ -130,6 +136,77 @@ def convex_hull(points):
 
     points = np.asarray(points)
     return points[ConvexHull(points).vertices]
+
+
+def points_inside_polygon(points, polygon):
+    """For each (n, 2) point, whether it lies inside the unclosed polygon
+    (``matplotlib.path.Path(polygon).contains_points(points)``).
+
+    matplotlib's crossing test (``_path.h::point_in_path_impl``): the
+    polygon is closed implicitly; an edge (x0, y0) -> (x1, y1) toggles a
+    point (tx, ty) when ``(y0 >= ty) != (y1 >= ty)`` and
+    ``((y1 - ty) * (x0 - x1) >= (x1 - tx) * (y0 - y1)) == (y1 >= ty)``.
+    A point with a non-finite coordinate is outside, and so is every point
+    of a polygon of fewer than 3 vertices. The first predicate holds
+    exactly for ty in (min(y0, y1), max(y0, y1)], so each edge tests only
+    that band of the points sorted by y: the result is the same, the work
+    is the band's instead of every point's.
+    """
+    pts = np.asarray(points, dtype=np.float64).reshape(-1, 2)
+    poly = np.asarray(polygon, dtype=np.float64).reshape(-1, 2)
+    inside = np.zeros(len(pts), dtype=bool)
+    if len(poly) < 3:
+        return inside
+    finite = np.flatnonzero(np.isfinite(pts).all(axis=1))
+    order = finite[np.argsort(pts[finite, 1], kind="stable")]
+    tx, ty = pts[order, 0], pts[order, 1]
+    flip = np.zeros(len(order), dtype=bool)
+    x0, y0 = poly[-1]  # the closing edge first: the toggles commute
+    for x1, y1 in poly:
+        lo, hi = (y0, y1) if y0 < y1 else (y1, y0)
+        if lo < hi:
+            a = np.searchsorted(ty, lo, side="right")
+            b = np.searchsorted(ty, hi, side="right")
+            if a < b:
+                yflag1 = y1 >= ty[a:b]
+                flip[a:b] ^= (((y1 - ty[a:b]) * (x0 - x1)
+                               >= (x1 - tx[a:b]) * (y0 - y1)) == yflag1)
+        x0, y0 = x1, y1
+    inside[order] = flip
+    return inside
+
+
+def polygon_area(poly, signed=False):
+    """Area of an unclosed polygon via the shoelace formula."""
+    poly = np.asarray(poly, dtype=np.float64)
+    x, y = poly[:, 0], poly[:, 1]
+    a = 0.5 * (np.dot(x, np.roll(y, -1)) - np.dot(y, np.roll(x, -1)))
+    return a if signed else abs(a)
+
+
+def polygon_centroid(poly):
+    """Centroid of an unclosed polygon (planar shoelace centroid)."""
+    poly = np.asarray(poly, dtype=np.float64)
+    x, y = poly[:, 0], poly[:, 1]
+    xn, yn = np.roll(x, -1), np.roll(y, -1)
+    cross = x * yn - xn * y
+    a = 0.5 * cross.sum()
+    if a == 0:
+        return float(x.mean()), float(y.mean())
+    cx = ((x + xn) * cross).sum() / (6 * a)
+    cy = ((y + yn) * cross).sum() / (6 * a)
+    return float(cx), float(cy)
+
+
+def find_nearest(a, value):
+    """Index of the element of sorted array ``a`` nearest to ``value``."""
+    a = np.asarray(a)
+    idx = int(np.searchsorted(a, value))
+    if idx == 0:
+        return 0
+    if idx >= len(a):
+        return len(a) - 1
+    return idx if abs(a[idx] - value) < abs(a[idx - 1] - value) else idx - 1
 
 
 def wrap_lon_180(lon):

@@ -4,8 +4,9 @@
 Drives the port's main path — georeference the real 12 MP ISS frame
 ISS030-E-102170 (4256x2832) and mean-regrid it onto the 539x524 fixed grid
 — through ``auromat_tpu_torch.entry``, then the public slice
-``create_mapping`` -> ``resample('mean')`` of the same frame, and checks
-them:
+``create_mapping`` -> ``resample('mean')`` of the same frame, the sequence
+mosaic and the all-sky-imager path (THEMIS and MIRACLE providers,
+``mosaic``, the interpolation routes, ``convert``), and checks them:
 
 1. the card (``nvidia-smi`` name and power limit);
 2. starts the build of every kernel source from this checkout, one nvcc
@@ -65,12 +66,41 @@ them:
     samples in one cell, an out-of-range K2 channel) raising the plain
     version's message.
 
+15. the all-sky-imager path at deployment scale: 24 synthetic THEMIS
+    stations (bench.py's geometry: 256x256 frames, 257x257 calibration
+    corner grids at 90/110/150 km) written as L1/L2 CDFs;
+    ``ThemisMappingProvider(offline=True, device='cuda').get`` at 100 km
+    must reproject all stations in one batched call on the card, within
+    1e-9 deg of the same call on the CPU; ``mosaic`` of the collection at
+    25 px/deg on the card must equal the CPU's (uint16 image, elevation,
+    mask);
+16. themis24: ``bin_take_best`` on fixed_grid(10, 40, 72, -160, -50)
+    (319x1099) for the 24 stations' samples with 2 channels,
+    ``plan_take_best`` and ``apply_take_best``, each bit-equal to the CPU
+    and timed (CUDA events, median of 20);
+17. a 512x512 MIRACLE frame (seeded RGB, the real cal.txt SOD entry),
+    built on the card with ``miracle.create_mapping`` (no JPEG decoder
+    here): ``resample`` with 'mean' (one K1 launch; equal to K1's plain
+    twin on the CPU), 'nearest' (must take the device route; equal to
+    'nearest_device' on the CPU), 'linear_device' and 'cubic_device'
+    (masks equal, uint8 within one step), wall and device times; K1 at
+    this frame's shapes against its plain version;
+18. ``cli.convert.main --grid geo --platform cuda`` on the THEMIS folder
+    (one tick, 24 files; a file's filled cells equal ``resample`` on the
+    card) and on a MIRACLE folder of two seeded frames (saved with numpy
+    under MIRACLE file names, read through ``np.load`` in place of the
+    JPEG reader): two files, K1 launched.
+
 Every kernel row gets, beside its time and its plain version's, its bound
 (``bound_ms``: the bytes the function must move — every index, the data
 of the valid samples, every output once — over the H100's 3.35 TB/s) and
-``library_ms``: one int64 ``index_add_`` of the same (count, channel,
-fixed-point elevation) sums, its inputs prepared outside the timed window,
-timed in turns with the kernel. The port never calls it.
+``library_ms``: one PyTorch call of the same function, timed in turns with
+the kernel: one int64 ``index_add_`` of the same (count, channel,
+fixed-point elevation) sums given the cell indices, and for K3, whose
+function starts from coordinates, the chain of float64 ``bin_indices``,
+the valid samples' data (NaN zeroed) and that ``index_add_`` (the
+``index_add_`` alone is kept as ``library_ms_given_indices``). The port
+never calls them.
 
 Prints one line per phase, then the card's line, a JSON line of
 per-kernel results, and as the last line ``{"ok": true, "device":
@@ -80,6 +110,7 @@ device it fails at once.
     python3 chip_smoke.py
 """
 
+import datetime
 import json
 import os
 import statistics
@@ -100,6 +131,9 @@ GOLDEN_RESAMPLE = os.path.join(RES, "golden_resample_ISS030-E-102170_dc.npz")
 SEQ_WCS = [os.path.join(RES, "seq", f"ISS029-E-{n}.wcs")
            for n in range(8493, 8503)]
 GLOBAL_005 = (20, -89.999, 89.999, -179.999, 179.999)  # 0.05 deg, 3599x7199
+N_STATIONS, ASI_SIZE = 24, 256  # the THEMIS network's stations and frames
+THEMIS_DATE = datetime.datetime(2012, 2, 4, 7, 56, 26)
+SOD_DATE = datetime.datetime(2012, 3, 4, 17, 19)  # cal.txt's SOD entry
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA's data sheet)
 
 
@@ -193,6 +227,30 @@ def library_call(torch, grid, iy, ix, terms):
     n_cells = grid.n_lat * grid.n_lon
     return lambda: torch.zeros(n_cells, vals.shape[1], dtype=torch.int64,
                                device=cell.device).index_add_(0, cell, vals)
+
+
+def k3_library_chain(torch, grid, lat, lon, data):
+    """K3's whole function as one PyTorch call chain, for ``library_ms``:
+    the float64 cell of each coordinate (``bin_indices``), the valid
+    samples' data with NaN zeroed, one int64 ``index_add_`` of the same
+    fixed-point sums."""
+    from auromat_tpu_torch.ops.regrid import bin_indices
+
+    n_cells = grid.n_lat * grid.n_lon
+
+    def call():
+        flat, valid = bin_indices(grid, lat, lon)
+        keep = valid.reshape(-1).nonzero().squeeze(1)
+        d = data.reshape(-1, data.shape[-1])[keep]
+        d = torch.where(d == d, d, 0.0)
+        q = torch.round((d[:, 3].double() + 90.0) * 2.0 ** 30).long()
+        vals = torch.cat([torch.ones_like(q)[:, None], d[:, :3].long(),
+                          q[:, None]], 1)
+        return torch.zeros(n_cells, 5, dtype=torch.int64,
+                           device=lat.device).index_add_(
+            0, flat.reshape(-1)[keep].long(), vals)
+
+    return call
 
 
 def fixed_terms(torch, chans, elev, shift=30, i8=False):
@@ -433,8 +491,12 @@ def slice_phases(torch, np, builds, grid, iy, ix, out, card):
                    torch, [taint[..., c] for c in range(7)], taint[..., 7]))),
         "K3": (lambda: rp.bin_partial_pallas(grid, lat, lon, data["uint8"],
                                              "uint8"),
-               library_call(torch, grid, iy, ix, fixed_terms(
-                   torch, [img3[..., c] for c in range(3)], elev))),
+               k3_library_chain(torch, grid, lat, lon, data["uint8"])),
+        "K3 given indices": (
+            lambda: rp.bin_partial_pallas(grid, lat, lon, data["uint8"],
+                                          "uint8"),
+            library_call(torch, grid, iy, ix, fixed_terms(
+                torch, [img3[..., c] for c in range(3)], elev))),
         "K1-i8": (lambda: bin_rgbelev_from_indices(grid, iy, ix, img_chw, elev,
                                                    compute="i8"),
                   library_call(torch, grid, iy, ix, fixed_terms(
@@ -444,7 +506,12 @@ def slice_phases(torch, np, builds, grid, iy, ix, out, card):
     lib_ms = {}
     for name, (kernel, call) in lib.items():
         _, lib_ms[name], _, _ = in_turns(torch, kernel, call)
-    del lib
+    k3_lib = lib["K3"][1]()
+    if not torch.equal(k3_lib[:, 0].float().reshape(grid.n_lat, grid.n_lon),
+                       rp.bin_partial_pallas(grid, lat, lon, data["uint8"],
+                                             "uint8")[0]):
+        raise AssertionError("K3's library chain counts != K3's")
+    del lib, k3_lib
     n_bytes = {
         "K2": bin_bytes(4, iy.numel(), n_valid, 8, n_cells, 9),
         "K3": bin_bytes(lat.element_size(), iy.numel(), n_valid, 4, n_cells,
@@ -470,6 +537,11 @@ def slice_phases(torch, np, builds, grid, iy, ix, out, card):
         print(f"[9] {name}: one int64 index_add_ of the same sums "
               f"{lib_ms[name]:.3f} ms; bound {bound_ms(n_bytes[name]):.4f} ms "
               f"({n_bytes[name]} bytes at 3.35 TB/s); on {card}", flush=True)
+    print(f"[9] K3's library_ms is its whole function as one call chain "
+          f"(float64 bin_indices of the f32 lat/lon, the valid samples' data, "
+          f"one int64 index_add_): {lib_ms['K3']:.3f} ms; the index_add_ "
+          f"alone, given the cell indices: {lib_ms['K3 given indices']:.3f} "
+          f"ms; on {card}", flush=True)
 
     params = GeorefParams.from_wcs(TanWcs(header), pos, photo_time, altitude)
     georef_ms = cuda_ms(torch, lambda: georeference(params, False, True,
@@ -532,9 +604,11 @@ def slice_phases(torch, np, builds, grid, iy, ix, out, card):
                    "auromat_tpu/ops/regrid_pallas.py:292",
                    launches["pallas_taint"], err["K2"],
                    *times["K2", "taint"][:2], n_bytes["K2"], lib_ms["K2"]),
-        kernel_row("regrid_bin via bin_partial_pallas (K3)", k2_src,
-                   "auromat_tpu/ops/regrid_pallas.py:68", launches["K3"],
-                   err["K3"], *times["K3"][:2], n_bytes["K3"], lib_ms["K3"]),
+        dict(kernel_row("regrid_bin via bin_partial_pallas (K3)", k2_src,
+                        "auromat_tpu/ops/regrid_pallas.py:68", launches["K3"],
+                        err["K3"], *times["K3"][:2], n_bytes["K3"],
+                        lib_ms["K3"]),
+             library_ms_given_indices=lib_ms["K3 given indices"]),
     ]
 
 
@@ -923,6 +997,352 @@ def tile_path_phases(torch, np, grid, card):
           flush=True)
 
 
+def synth_themis(np, torch, folder, n_stations=N_STATIONS, size=ASI_SIZE,
+                 n_frames=3, seed=1):
+    """THEMIS L1/L2 CDFs of ``n_stations`` synthetic stations in ``folder``,
+    with bench.py:395-419's geometry (seed 1, stations at lat 51-62 and lon
+    -150..-60, fisheye k=155): L2 calibration corner grids ((size + 1)^2)
+    at the reference altitudes 90/110/150 km, L1 hour files of ``n_frames``
+    seeded exposures 3 s apart; written with the port's CDFWriter under
+    the network's station names. Returns (station names, exposure times)."""
+    from datetime import timedelta
+
+    from auromat_tpu_torch.constants import WGS84_A, WGS84_B
+    from auromat_tpu_torch.coordinates.intersection import \
+        ellipsoid_line_intersection
+    from auromat_tpu_torch.coordinates.transform import (ecef_to_geodetic,
+                                                         station_ecef)
+    from auromat_tpu_torch.io import cdflib
+    from auromat_tpu_torch.mapping import miracle, themis
+
+    rng = np.random.default_rng(seed)
+    st_lats = 51.0 + 11.0 * rng.random(n_stations)
+    st_lons = -150.0 + 90.0 * rng.random(n_stations)
+    heights = np.array([90e3, 110e3, 150e3])
+    times = [THEMIS_DATE + timedelta(seconds=3 * i) for i in range(n_frames)]
+    stations = themis.STATIONS[:n_stations]  # the provider's default list
+    for i, st in enumerate(stations):
+        cal = miracle.CalibrationData(
+            station=st.upper(), validFrom=None, validTo=None,
+            lat=float(st_lats[i]), lon=float(st_lons[i]),
+            xc=size / 2 * 512 / size, yc=size / 2 * 512 / size, k=155.0,
+            rotation=0.0, boundingBoxSimple=None)
+        az_c, el_c = miracle.fisheye_az_el(cal, size, corner=False)
+        az_k, el_k = miracle.fisheye_az_el(cal, size, corner=True)
+        dirs = torch.from_numpy(miracle.az_el_to_geo_directions(cal, az_k,
+                                                                el_k))
+        origin = torch.from_numpy(station_ecef(cal.lat, cal.lon))
+        refs = []
+        for h in heights / 1000.0:
+            inter = ellipsoid_line_intersection(WGS84_A + h, WGS84_B + h,
+                                                origin, dirs)
+            refs.append([np.rad2deg(a.numpy()) for a in ecef_to_geodetic(
+                inter[..., 0], inter[..., 1], inter[..., 2])])
+        lats_ref = np.stack([r[0] for r in refs], axis=-1)
+        lons_ref = np.stack([r[1] for r in refs], axis=-1)
+        with cdflib.CDFWriter(os.path.join(
+                folder, themis.L2_FILENAME.format(station=st))) as cdf:
+            cdf.new(f"thg_asc_{st}_glat", np.float32(cal.lat), rec_vary=False)
+            cdf.new(f"thg_asc_{st}_glon", np.float32(cal.lon), rec_vary=False)
+            cdf.new(f"thg_asf_{st}_azim", az_c[None].astype(np.float32))
+            cdf.new(f"thg_asf_{st}_elev", el_c[None].astype(np.float32))
+            cdf.new(f"thg_asf_{st}_glat", lats_ref[None].astype(np.float32))
+            cdf.new(f"thg_asf_{st}_glon", lons_ref[None].astype(np.float32))
+            cdf.new(f"thg_asf_{st}_alti", heights.astype(np.float32),
+                    rec_vary=False)
+        imgs = (rng.random((n_frames, size, size)) * 8000 + 2500).astype(
+            np.int32)
+        with cdflib.CDFWriter(os.path.join(
+                folder, themis.l1_filename(st, times[0]))) as cdf:
+            cdf.new(f"thg_asf_{st}_epoch", times)
+            cdf.new(f"thg_asf_{st}", imgs)
+    return stations, times
+
+
+def asi_phases(torch, np, card):
+    """Phases 15-18: the all-sky-imager path on the card; returns the
+    kernels-line row of K1 on it (MIRACLE ``resample('mean')``)."""
+    import contextlib
+    import io
+    import tempfile
+    from datetime import timedelta
+
+    from auromat_tpu_torch import resample as resample_mod
+    from auromat_tpu_torch.cli import convert
+    from auromat_tpu_torch.io import cdflib
+    from auromat_tpu_torch.mapping import miracle, themis
+    from auromat_tpu_torch.ops import _kernels
+    from auromat_tpu_torch.ops.georegrid import (bin_mean_rgbelev,
+                                                 bin_rgbelev_from_indices,
+                                                 bin_rgbelev_plain,
+                                                 split_bin_indices)
+    from auromat_tpu_torch.ops.regrid import (apply_take_best, bin_indices,
+                                              bin_nearest, bin_take_best,
+                                              fixed_grid,
+                                              interp_cubic_structured,
+                                              interp_linear_structured,
+                                              plan_take_best)
+    from auromat_tpu_torch.resample import mosaic, resample
+
+    dev = torch.device("cuda")
+    all_kernels = (_kernels.GEOREGRID_BIN, _kernels.GEOREGRID_BIN_I8,
+                   _kernels.REGRID_BIN, _kernels.REGRID_BIN_V1)
+    k1 = _kernels.GEOREGRID_BIN
+    bits = lambda t: t.contiguous().view(torch.int32).cpu()
+    bit_equal = lambda a, b: a.shape == b.shape and torch.equal(bits(a),
+                                                                bits(b))
+    tmp = tempfile.TemporaryDirectory()
+    th_dir = os.path.join(tmp.name, "themis")
+    os.makedirs(th_dir)
+    t0 = time.perf_counter()
+    stations, times = synth_themis(np, torch, th_dir)
+    synth_s = time.perf_counter() - t0
+
+    # -- 15. THEMIS at deployment scale --------------------------------------
+    calls = []
+    real_batch = themis.reproject_batch
+
+    def counted(*a, **k):
+        calls.append((tuple(np.shape(a[1])), str(k.get("device"))))
+        return real_batch(*a, **k)
+
+    prov = themis.ThemisMappingProvider(th_dir, th_dir, altitude=100,
+                                        offline=True, stations=stations,
+                                        device=dev)
+    themis.reproject_batch = counted
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        coll = prov.get(times[1])
+        torch.cuda.synchronize()
+        get_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        themis.reproject_batch = real_batch
+    if len(coll) != N_STATIONS or calls != [((N_STATIONS, ASI_SIZE + 1,
+                                              ASI_SIZE + 1), "cuda")]:
+        raise AssertionError(f"THEMIS get: {len(coll)} mappings, reprojection "
+                             f"calls {calls}")
+    cpu_coll = themis.ThemisMappingProvider(
+        th_dir, th_dir, altitude=100, offline=True, stations=stations,
+        device="cpu").get(times[1])
+    gerr = 0.0
+    for m, c in zip(coll.mappings, cpu_coll.mappings):
+        if m.identifier != c.identifier or \
+                not np.array_equal(m.corner_mask, c.corner_mask) or \
+                not np.array_equal(m.img.filled(0), c.img.filled(0)):
+            raise AssertionError(f"THEMIS {m.identifier}: card != CPU")
+        for a, b in ((m.lats, c.lats), (m.lons, c.lons)):
+            a, b = a.filled(np.nan), b.filled(np.nan)
+            if not np.array_equal(np.isnan(a), np.isnan(b)):
+                raise AssertionError(f"THEMIS {m.identifier}: NaN masks")
+            gerr = max(gerr, float(np.nanmax(np.abs(a - b))))
+    if not gerr <= 1e-9:
+        raise AssertionError(f"THEMIS reprojection card vs CPU: {gerr} deg")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mo = mosaic(coll, device=dev)
+    torch.cuda.synchronize()
+    mosaic_ms = (time.perf_counter() - t0) * 1e3
+    mo_cpu = mosaic(coll, device="cpu")
+    occupied = int((~mo.center_mask).sum())
+    if not (np.array_equal(mo.center_mask, mo_cpu.center_mask)
+            and np.array_equal(mo.img.filled(0), mo_cpu.img.filled(0))
+            and np.array_equal(mo.elevation.filled(np.nan),
+                               mo_cpu.elevation.filled(np.nan),
+                               equal_nan=True)
+            and mo.img.dtype == np.uint16 and occupied > 0):
+        raise AssertionError("THEMIS mosaic: card != CPU")
+    print(f"[15] THEMIS {N_STATIONS} stations x {ASI_SIZE}x{ASI_SIZE} "
+          f"(synthetic CDFs written in {synth_s:.1f} s): "
+          f"ThemisMappingProvider(device='cuda').get at 100 km "
+          f"{get_ms:.1f} ms wall, one batched reprojection on the card "
+          f"{calls[0][0]}, {gerr:.3g} deg from the CPU's; mosaic at 25 "
+          f"px/deg -> {mo.img.shape[0]}x{mo.img.shape[1]}: {occupied} "
+          f"occupied cells, {mosaic_ms:.1f} ms wall, == the CPU mosaic (uint16 "
+          f"image, elevation, mask); on {card}", flush=True)
+
+    # -- 16. themis24: the composite, its plan and one exposure's gather -------
+    g24 = fixed_grid(10, 40.0, 72.0, -160.0, -50.0)
+    stack = lambda name: np.stack([getattr(m, name).filled(np.nan)
+                                   for m in coll.mappings])
+    la24, lo24, el24 = (stack(n).astype(np.float32)
+                        for n in ("latsCenter", "lonsCenter", "elevation"))
+    gray = np.random.default_rng(1).random(la24.shape).astype(np.float32) * 255
+    host = [la24, lo24, -el24, np.stack([gray, el24], axis=-1)]
+    cpu_in = [torch.from_numpy(a) for a in host]
+    dev_in = [a.to(dev) for a in cpu_in]
+    tb = bin_take_best(g24, *dev_in)
+    tb_cpu = bin_take_best(g24, *cpu_in)
+    plan = plan_take_best(g24, *dev_in[:3])
+    applied = apply_take_best(plan, dev_in[3])
+    plan_cpu = plan_take_best(g24, *cpu_in[:3])
+    if not (all(bit_equal(a, b) for a, b in zip(tb, tb_cpu))
+            and torch.equal(plan.winner.cpu(), plan_cpu.winner)
+            and bit_equal(applied, tb_cpu[0])
+            and bit_equal(apply_take_best(plan_cpu, cpu_in[3]), tb_cpu[0])):
+        raise AssertionError("themis24: card != CPU")
+    n_cells24 = int(plan.occupied.sum().item())
+    themis24_ms = cuda_ms(torch, lambda: bin_take_best(g24, *dev_in), N_TIMED)
+    plan_ms = cuda_ms(torch, lambda: plan_take_best(g24, *dev_in[:3]), N_TIMED)
+    apply_ms = cuda_ms(torch, lambda: apply_take_best(plan, dev_in[3]),
+                       N_TIMED)
+    print(f"[16] themis24 ({N_STATIONS}x{ASI_SIZE}x{ASI_SIZE} samples, 2 "
+          f"channels -> {g24.n_lat}x{g24.n_lon}, {n_cells24} cells won): "
+          f"themis24_ms {themis24_ms:.3f}, themis24_plan_ms {plan_ms:.3f}, "
+          f"themis24_apply_ms {apply_ms:.3f} (CUDA events, median of "
+          f"{N_TIMED}); composite, plan and gather == the CPU's bit for "
+          f"bit; on {card}", flush=True)
+    del dev_in, tb, plan, applied
+
+    # -- 17. a MIRACLE frame: resample's routes on the card --------------------
+    cal = miracle.get_calibration_data(os.path.join(RES, "cal.txt"), "SOD",
+                                       SOD_DATE)
+    frame = np.random.default_rng(SEED).integers(0, 256, (512, 512, 3),
+                                                 dtype=np.uint8)
+    m = miracle.create_mapping(frame, cal, SOD_DATE, 110, device=dev)
+    m_cpu = miracle.create_mapping(frame, cal, SOD_DATE, 110, device="cpu")
+    merr = float(np.nanmax(np.abs(m.lats.filled(np.nan)
+                                  - m_cpu.lats.filled(np.nan))))
+    if not (np.array_equal(m.center_mask, m_cpu.center_mask) and merr < 1e-9):
+        raise AssertionError(f"MIRACLE mapping card vs CPU: {merr} deg")
+    bb = m.boundingBox
+    grid = fixed_grid((25, 25), bb.latSouth, bb.latNorth, bb.lonWest,
+                      bb.lonEast)
+    lats_c = torch.from_numpy(m.latsCenter.filled(np.nan)).to(dev)
+    lons_c = torch.from_numpy(m.lonsCenter.filled(np.nan)).to(dev)
+    merged = torch.from_numpy(np.concatenate(
+        [frame.astype(np.float64), m.elevation.filled(np.nan)[..., None]],
+        -1)).to(dev)
+    ops = {"mean": lambda: bin_mean_rgbelev(grid, lats_c, lons_c, merged),
+           "nearest": lambda: bin_nearest(grid, lats_c, lons_c, merged),
+           "linear_device": lambda: interp_linear_structured(
+               grid, lats_c, lons_c, merged),
+           "cubic_device": lambda: interp_cubic_structured(
+               grid, lats_c, lons_c, merged)}
+    cpu_route = {"mean": dict(method="mean", bin_method="pallas_rgbelev"),
+                 "nearest": dict(method="nearest_device"),
+                 "linear_device": dict(method="linear_device"),
+                 "cubic_device": dict(method="cubic_device")}
+    nearest_calls = []
+    real_nearest = resample_mod.bin_nearest
+    resample_mod.bin_nearest = lambda *a, **k: (nearest_calls.append(
+        a[1].device.type), real_nearest(*a, **k))[1]
+    k1_launches = 0
+    try:
+        for method, op in ops.items():
+            for k in all_kernels:
+                k.launches = 0
+            nearest_calls.clear()
+            r = resample(m, method=method, device=dev)
+            torch.cuda.synchronize()
+            if method == "mean":
+                k1_launches = k1.launches
+                if k1_launches != 1:
+                    raise AssertionError(f"resample('mean'): {k1_launches} "
+                                         "K1 launches")
+            if method == "nearest" and nearest_calls != ["cuda"]:
+                raise AssertionError(f"resample('nearest') on the card took "
+                                     f"{nearest_calls}")
+            want = resample(m, device="cpu", **cpu_route[method])
+            mask = np.ma.getmaskarray(r.img)
+            if not np.array_equal(mask, np.ma.getmaskarray(want.img)):
+                raise AssertionError(f"MIRACLE {method}: masks differ")
+            step = int(np.abs(r.img.filled(0).astype(int)
+                              - want.img.filled(0).astype(int)).max())
+            if step > (0 if method in ("mean", "nearest") else 1):
+                raise AssertionError(f"MIRACLE {method}: uint8 step {step}")
+            wall = wall_ms(torch, lambda: resample(m, method=method,
+                                                   device=dev), N_WALL)
+            dev_ms = cuda_ms(torch, op, 5)
+            print(f"[17] MIRACLE 512x512 resample({method!r}) on the card -> "
+                  f"{r.img.shape[0]}x{r.img.shape[1]}: {wall:.1f} ms wall, "
+                  f"{dev_ms:.2f} ms on the device; {int((~mask[..., 0]).sum())} "
+                  f"cells, == the CPU's {cpu_route[method]} (masks equal, "
+                  f"uint8 max step {step}); on {card}", flush=True)
+    finally:
+        resample_mod.bin_nearest = real_nearest
+
+    # K1 at this path's shapes, against its plain version
+    iy, ix = split_bin_indices(grid, *bin_indices(grid, lats_c, lons_c))
+    img_chw = merged[..., :3].float().permute(2, 0, 1).contiguous()
+    elev = merged[..., 3].float().contiguous()
+    got = bin_rgbelev_from_indices(grid, iy, ix, img_chw, elev)
+    want = bin_rgbelev_plain(grid, iy, ix, img_chw, elev)
+    torch.cuda.synchronize()
+    k1_err = check_equal(torch, "K1 on the MIRACLE frame", got, want)
+    n_valid = int((iy >= 0).sum().item())
+    k_ms, p_ms, _, _ = in_turns(
+        torch, lambda: bin_rgbelev_from_indices(grid, iy, ix, img_chw, elev),
+        lambda: bin_rgbelev_plain(grid, iy, ix, img_chw, elev))
+    _, lib_ms, _, _ = in_turns(
+        torch, lambda: bin_rgbelev_from_indices(grid, iy, ix, img_chw, elev),
+        library_call(torch, grid, iy, ix, fixed_terms(torch, list(img_chw),
+                                                      elev)))
+    k1_bytes = bin_bytes(4, iy.numel(), n_valid, 4, grid.n_lat * grid.n_lon,
+                         5)
+    print(f"[17] K1 on the MIRACLE frame ({n_valid} valid samples -> "
+          f"{grid.n_lat}x{grid.n_lon}): == plain; {k_ms:.3f} ms vs plain "
+          f"{p_ms:.3f} ms, one int64 index_add_ {lib_ms:.3f} ms, bound "
+          f"{bound_ms(k1_bytes):.4f} ms; on {card}", flush=True)
+
+    # -- 18. convert on THEMIS and MIRACLE folders -----------------------------
+    out = os.path.join(tmp.name, "out")
+    span = ["--start", (times[1] - timedelta(seconds=1)).isoformat(),
+            "--end", (times[1] + timedelta(seconds=1)).isoformat()]
+    log = io.StringIO()
+    for k in all_kernels:
+        k.launches = 0
+    with contextlib.redirect_stdout(log):
+        rc = convert.main([th_dir, "--grid", "geo", "--platform", "cuda",
+                           "--altitude", "100", "--out", out + "_th", *span])
+    th_files = sorted(os.listdir(out + "_th"))
+    if rc != 0 or len(th_files) != N_STATIONS:
+        raise AssertionError(f"convert THEMIS: rc {rc}, {len(th_files)} files")
+    first = coll.mappings[0]
+    r0 = resample(first, arcsec_per_px=100, device=dev)
+    img0 = cdflib.CDFReader(os.path.join(out + "_th",
+                                         f"{first.identifier}.cdf"))["img"]
+    in_file = int((np.asarray(img0[0]) != img0.attrs["FILLVAL"]).sum())
+    if in_file != int((~r0.center_mask).sum()) or in_file == 0:
+        raise AssertionError(f"convert THEMIS: {in_file} cells in the file")
+
+    mi_dir = os.path.join(tmp.name, "miracle")
+    os.makedirs(mi_dir)
+    with open(os.path.join(RES, "cal.txt")) as f_in, \
+            open(os.path.join(mi_dir, "cal.txt"), "w") as f_out:
+        f_out.write(f_in.read())
+    rng = np.random.default_rng(SEED + 1)
+    for name in ("SOD120304_171900_557_1000.jpg",
+                 "SOD120304_172000_557_1000.jpg"):
+        with open(os.path.join(mi_dir, name), "wb") as f:
+            np.save(f, rng.integers(0, 256, (512, 512, 3), dtype=np.uint8))
+    real_load = miracle.load_image
+    miracle.load_image = np.load  # no JPEG decoder here: seeded arrays
+    try:
+        with contextlib.redirect_stdout(log):
+            rc = convert.main([mi_dir, "--grid", "geo", "--platform", "cuda",
+                               "--out", out + "_mi"])
+    finally:
+        miracle.load_image = real_load
+    mi_files = sorted(os.listdir(out + "_mi"))
+    red = cdflib.CDFReader(os.path.join(out + "_mi", mi_files[0]))["img_red"]
+    in_file_mi = int((np.asarray(red[0]) != red.attrs["FILLVAL"]).sum())
+    if rc != 0 or len(mi_files) != 2 or in_file_mi == 0 or k1.launches < 2:
+        raise AssertionError(f"convert MIRACLE: rc {rc}, files {mi_files}, "
+                             f"{in_file_mi} cells, {k1.launches} K1 launches")
+    print(f"[18] convert --grid geo --platform cuda: THEMIS folder ({N_STATIONS} "
+          f"stations, one tick) -> {len(th_files)} CDFs, {th_files[0]} holds "
+          f"{in_file} cells == resample on the card; MIRACLE folder (2 seeded "
+          f"512x512 frames) -> {len(mi_files)} CDFs ({in_file_mi} cells in "
+          f"{mi_files[0]}), {k1.launches} K1 launches", flush=True)
+    tmp.cleanup()
+    return kernel_row("georegrid_bin (K1) on the ASI path, MIRACLE "
+                      "resample('mean')",
+                      "auromat_tpu_torch/ops/csrc/georegrid_bin.cu",
+                      "auromat_tpu/ops/georegrid.py:65", k1_launches, k1_err,
+                      k_ms, p_ms, k1_bytes, lib_ms)
+
+
 def main():
     import torch
 
@@ -1103,6 +1523,7 @@ def main():
     del iy, ix, out, elev, k_args
     rows.append(mosaic_phases(torch, np, card))
     tile_path_phases(torch, np, grid, card)
+    rows.append(asi_phases(torch, np, card))
 
     print(card)
     print(json.dumps({"kernels": rows}))

@@ -237,10 +237,16 @@ def test_convert_per_frame_cdf_matches_jax_cli(small_folder, tmp_path):
     with pytest.raises(NotImplementedError, match="resample_mlat_mlt"):
         convert.main(CPU + [small_folder, "--grid", "mag", "--out",
                       str(tmp_path / "mag")])
+    (tmp_path / "iss").mkdir()
+    (tmp_path / "iss" / "api.json").write_text("{}")
+    with pytest.raises(NotImplementedError, match="item 10"):
+        convert.main(CPU + [str(tmp_path / "iss")])
+    # a MIRACLE folder without images converts nothing (tests/test_torch_asi.py
+    # converts real ones)
     (tmp_path / "asi").mkdir()
     (tmp_path / "asi" / "cal.txt").write_text("")
-    with pytest.raises(NotImplementedError, match="item 9"):
-        convert.main(CPU + [str(tmp_path / "asi")])
+    assert convert.main(CPU + [str(tmp_path / "asi")]) == 0
+    assert os.listdir(tmp_path / "asi") == ["cal.txt"]
 
 
 def test_provider_batched_and_masking(small_folder):

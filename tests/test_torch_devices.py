@@ -24,11 +24,15 @@ from auromat_tpu_torch.mapping.spacecraft import (SpacecraftMappingProvider,
                                                   get_mapping_batch)
 from auromat_tpu_torch.ops.georef import (DynGeorefParams, GeorefParams,
                                           georeference)
+from auromat_tpu_torch.mapping import miracle, themis
 from auromat_tpu_torch.parallel import global_mesh, initialize, make_mesh
-from auromat_tpu_torch.resample import resample
+from auromat_tpu_torch.resample import mosaic, resample
 
 RES = os.path.join(os.path.dirname(__file__), "resources")
 WCS = os.path.join(RES, "ISS030-E-102170_dc.wcs")
+SOD = os.path.join(RES, "SOD120304_171900_557_1000.jpg")
+RESAMPLE_METHODS = ("nearest", "nearest_host", "nearest_device", "linear",
+                    "linear_device", "cubic", "cubic_device")
 
 
 def small_header(w=128, h=96):
@@ -98,6 +102,35 @@ ENTRY_POINTS = {
         _Bursts(), _mosaic_args(tmp), str(tmp)),
     "convert.platform_device": lambda s, tmp: convert.platform_device(
         _geo_args(tmp).platform),
+    "mosaic": lambda s, tmp: mosaic([s.mapping]),
+    "ThemisMappingProvider": lambda s, tmp: themis.ThemisMappingProvider(
+        str(tmp), str(tmp), offline=True),
+    "themis.get_mappings": lambda s, tmp: themis.get_mappings(
+        s.t, str(tmp), str(tmp), offline=True),
+    "themis.mapping_single_asi": lambda s, tmp: themis.mapping_single_asi(
+        "gill", s.t, str(tmp), str(tmp), offline=True),
+    "themis.reproject_batch": lambda s, tmp: themis.reproject_batch(
+        np.zeros((1, 2)), np.zeros((1, 3, 3)), np.zeros((1, 3, 3)), 110.0,
+        100.0),
+    "themis.reproject": lambda s, tmp: themis.reproject(
+        (0.0, 0.0), np.zeros((3, 3)), np.zeros((3, 3)), 110.0, 100.0),
+    "MIRACLEMappingProvider": lambda s, tmp: miracle.MIRACLEMappingProvider(
+        RES),
+    "miracle.get_mapping": lambda s, tmp: miracle.get_mapping(SOD),
+    "miracle.create_mapping": lambda s, tmp: miracle.create_mapping(
+        np.zeros((64, 64, 3), np.uint8), miracle.get_calibration_data(
+            os.path.join(RES, "cal.txt"), "SOD", s.t.replace(year=2012)),
+        s.t.replace(year=2012)),
+    "convert.make_provider themis": lambda s, tmp: convert.make_provider(
+        "themis", str(tmp), 110.0),
+    "convert.make_provider miracle": lambda s, tmp: convert.make_provider(
+        "miracle", RES, 110.0),
+    "convert.main miracle": lambda s, tmp: convert.main(
+        [RES, "--out", str(tmp)]),
+    "convert.main themis": lambda s, tmp: convert.main(
+        [str(tmp), "--grid", "geo", "--out", str(tmp)]),
+    **{f"resample method={m}": (lambda s, tmp, m=m: resample(
+        s.mapping, px_per_deg=3, method=m)) for m in RESAMPLE_METHODS},
 }
 
 

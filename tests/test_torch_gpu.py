@@ -34,6 +34,12 @@ only the port is installed:
   all bit-equal to the plain versions for K1, K1-i8, K2 (every mode) and
   K3; and the refusals (a cell past MAX_CELL_COUNT, an out-of-range K2
   channel) raise the plain version's message.
+* The all-sky-imager path on the card against the CPU: take-best and its
+  plan (NaN, -NaN, -0.0 and +0.0 priorities, all-invalid input) and the
+  jump-flood nearest bit-equal; the structured linear/cubic interpolators
+  within 1e-9 with equal NaN masks; a MIRACLE mapping built on the card,
+  its resample routes ('nearest' takes the device route; 'mean' launches
+  K1 and equals K1's plain twin) and ``mosaic``; ``reproject_batch``.
 """
 
 import os
@@ -533,3 +539,157 @@ def test_k2_refusals_match_plain(cuda, mode, value):
             fn()
         msgs.append(str(e.value))
     assert msgs[0] == msgs[1]
+
+
+# -- the all-sky-imager path: take-best, nearest, mesh inversion -------------
+
+def _asi_samples(seed, n=50000):
+    """Seeded samples over ASI_GRID with repeated, NaN, -NaN, -0.0 and
+    +0.0 priorities, NaN coordinates and NaN payload."""
+    rng = np.random.default_rng(seed)
+    lat = rng.uniform(9.5, 20.5, n).astype(np.float32)
+    lon = rng.uniform(29.5, 45.5, n).astype(np.float32)
+    pri = rng.integers(-5, 5, n).astype(np.float32)
+    for value in (np.nan, -np.nan, -0.0, 0.0):
+        pri[rng.random(n) < 0.05] = value
+    lat[rng.random(n) < 0.02] = np.nan
+    data = rng.random((n, 2)).astype(np.float32)
+    data[rng.random(n) < 0.05, 0] = np.nan
+    return [torch.from_numpy(a) for a in (lat, lon, pri, data)]
+
+
+ASI_GRID = fixed_grid(4, 10.0, 20.0, 30.0, 45.0)
+
+
+def _bits_equal(a, b):
+    a, b = a.cpu(), b.cpu()
+    return a.shape == b.shape and torch.equal(a.view(torch.int32),
+                                              b.view(torch.int32))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("all_invalid", [False, True])
+def test_take_best_cuda_matches_cpu(cuda, all_invalid):
+    from auromat_tpu_torch.ops.regrid import (apply_take_best, bin_take_best,
+                                              plan_take_best)
+
+    args = _asi_samples(0)
+    if all_invalid:
+        args[0][:] = float("nan")
+    want = bin_take_best(ASI_GRID, *args)
+    got = bin_take_best(ASI_GRID, *(a.to(cuda) for a in args))
+    for g, w in zip(got, want):
+        assert g.device.type == "cuda" and _bits_equal(g, w)
+    plan = plan_take_best(ASI_GRID, *(a.to(cuda) for a in args[:3]))
+    cplan = plan_take_best(ASI_GRID, *args[:3])
+    assert torch.equal(plan.winner.cpu(), cplan.winner)
+    assert _bits_equal(plan.best_priority, cplan.best_priority)
+    assert _bits_equal(apply_take_best(plan, args[3].to(cuda)), want[0])
+    with pytest.raises(ValueError, match="re-plan"):
+        apply_take_best(plan, args[3][1:].to(cuda))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("oversample", [1, 2])
+def test_bin_nearest_cuda_matches_cpu(cuda, oversample):
+    from auromat_tpu_torch.ops.regrid import bin_nearest
+
+    lat, lon, _, data = _asi_samples(1, n=3000)
+    want = bin_nearest(ASI_GRID, lat, lon, data, oversample)
+    got = bin_nearest(ASI_GRID, lat.to(cuda), lon.to(cuda), data.to(cuda),
+                      oversample)
+    for g, w in zip(got, want):
+        assert _bits_equal(g, w)
+
+
+def _mesh(h=48, w=64):
+    yy, xx = np.mgrid[:h, :w].astype(np.float64)
+    lat = 60.0 - 0.05 * yy + 0.004 * xx + 0.002 * np.sin(xx / 7.0)
+    lon = 10.0 + 0.07 * xx + 0.01 * yy
+    lat[:3, :5] = np.nan
+    lon[:3, :5] = np.nan
+    data = np.random.default_rng(2).random((h, w, 3)) * 255
+    return fixed_grid(30, 57.7, 60.0, 10.4, 14.4), lat, lon, data
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["linear", "cubic"])
+def test_interp_structured_cuda_matches_cpu(cuda, kind):
+    from auromat_tpu_torch.ops import regrid
+
+    fn = getattr(regrid, f"interp_{kind}_structured")
+    grid, lat, lon, data = _mesh()
+    t = [torch.from_numpy(a) for a in (lat, lon, data)]
+    want = fn(grid, *t)
+    got = fn(grid, *(a.to(cuda) for a in t))
+    for g, w in zip(got, want):
+        g = g.cpu()
+        assert g.dtype == torch.float64
+        assert torch.equal(torch.isnan(g), torch.isnan(w))
+        ok = ~torch.isnan(w)
+        assert ok.float().mean() > 0.3
+        assert (g[ok] - w[ok]).abs().max().item() < 1e-9
+
+
+def _miracle_small(device, w=128):
+    import datetime
+
+    from auromat_tpu_torch.mapping import miracle
+
+    date = datetime.datetime(2012, 3, 4, 17, 19)
+    cal = miracle.get_calibration_data(os.path.join(RES, "cal.txt"), "SOD",
+                                       date)
+    img = np.random.default_rng(4).integers(0, 256, (w, w, 3), np.uint8)
+    return miracle.create_mapping(img, cal, date, 110, device=device)
+
+
+@pytest.mark.gpu
+def test_miracle_mapping_and_resample_routes_cuda_match_cpu(cuda):
+    from auromat_tpu_torch.resample import mosaic, resample
+
+    m = _miracle_small(cuda)
+    mc = _miracle_small("cpu")
+    assert np.array_equal(m.center_mask, mc.center_mask)
+    d = np.abs(m.lats.filled(np.nan) - mc.lats.filled(np.nan))
+    assert np.nanmax(d) < 1e-9
+    for method, cpu_method in (("nearest", "nearest_device"),
+                               ("linear_device", "linear_device"),
+                               ("cubic_device", "cubic_device"),
+                               ("mean", "mean")):
+        got = resample(m, px_per_deg=10, method=method, device=cuda)
+        want = resample(m, px_per_deg=10, method=cpu_method, device="cpu",
+                        bin_method="pallas_rgbelev" if method == "mean"
+                        else "auto")
+        mask = np.ma.getmaskarray(got.img)
+        assert np.array_equal(mask, np.ma.getmaskarray(want.img))
+        assert (~mask).sum() > 3000
+        step = np.abs(got.img.filled(0).astype(int)
+                      - want.img.filled(0).astype(int)).max()
+        assert step <= (0 if method in ("nearest", "mean") else 1)
+    got = mosaic([m], px_per_deg=10, device=cuda)
+    want = mosaic([m], px_per_deg=10, device="cpu")
+    assert np.array_equal(got.img.filled(0), want.img.filled(0))
+
+
+@pytest.mark.gpu
+def test_reproject_batch_cuda_matches_cpu(cuda):
+    from auromat_tpu_torch.coordinates.transform import station_ecef
+    from auromat_tpu_torch.mapping import miracle, themis
+
+    lats, lons, ll = [], [], []
+    for i, (la, lo) in enumerate(((56.4, -94.6), (60.0, -120.0))):
+        cal = miracle.CalibrationData(
+            station=f"S{i}", validFrom=None, validTo=None, lat=la, lon=lo,
+            xc=256.0, yc=256.0, k=155.0, rotation=0.0, boundingBoxSimple=None)
+        a, b = miracle._grid_latlon(cal, 64, 110.0,
+                                    station_ecef(cal.lat, cal.lon), True,
+                                    torch.device("cpu"))
+        lats.append(a)
+        lons.append(b)
+        ll.append((la, lo))
+    args = (np.array(ll), np.stack(lats), np.stack(lons), 110.0, 100.0)
+    want = themis.reproject_batch(*args, device="cpu")
+    got = themis.reproject_batch(*args, device=cuda)
+    for g, w in zip(got, want):
+        assert np.array_equal(np.isnan(g), np.isnan(w))
+        assert np.nanmax(np.abs(g - w)) < 1e-9

@@ -259,8 +259,11 @@ def test_resample_collection_and_refusals(small_mappings):
     one = resample(m, px_per_deg=3, device="cpu")
     assert len(col) == 2 and col.identifier == "pair"
     assert np.array_equal(col.mappings[1].img, one.img)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        resample(m, method="nearest", device="cpu")
+    with pytest.raises(NotImplementedError, match="spline"):
+        resample(m, method="spline", device="cpu")
+    # the interpolation methods (tests/test_torch_interp.py) share the grid
+    near = resample(m, px_per_deg=3, method="nearest", device="cpu")
+    assert np.array_equal(near.lats.data, one.lats.data)
     with pytest.raises(KeyError):
         resample(m, bin_method="pallas", device="cpu")
     with pytest.raises(ValueError):
