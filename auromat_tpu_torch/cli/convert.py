@@ -2,8 +2,8 @@
 
 Counterpart of ``auromat_tpu.cli.convert`` (reference
 auromat/cli/convert.py:148-218): detects the source type of a data folder,
-optionally masks by elevation and resamples onto a geographic grid, and
-exports each mapping with skip/overwrite logic — or, with ``--mosaic``,
+optionally masks by elevation and resamples onto a geographic or magnetic
+(MLat/MLT) grid, and exports each mapping with skip/overwrite logic — or, with ``--mosaic``,
 streams the whole sequence through the grid-sharded mosaic
 (:func:`auromat_tpu_torch.parallel.mosaic_sequence`, K1 on every burst)
 into ONE file.
@@ -13,14 +13,14 @@ into ONE file.
         --mosaic 0.05 --platform cuda      # one GPU per process
 
     python -m auromat_tpu_torch.cli.convert THEMIS_FOLDER --grid geo
+    python -m auromat_tpu_torch.cli.convert FOLDER --grid mag --platform cuda
 
 Under ``torchrun`` every rank streams the sequence, bins its share of each
 burst's frames on its own GPU, and rank 0 writes the file. Source types:
 spacecraft folders (image + .wcs pairs), THEMIS L1/L2 CDF caches (offline:
 nothing is downloaded) and MIRACLE folders (images + cal.txt); a THEMIS or
 MIRACLE tick is a MappingCollection, and each member becomes one file. The
-ISS archive provider is not ported yet (ROADMAP.md queue 1 item 10), and
-``--grid mag`` waits for ``resample_mlat_mlt``.
+ISS archive provider is not ported yet (ROADMAP.md section 1 item 4).
 """
 
 import argparse
@@ -67,8 +67,8 @@ def make_provider(source_type, folder, altitude, fast_center=True,
                                       device=device)
     if source_type == "iss":
         raise NotImplementedError(
-            "the iss mapping provider is not ported yet (ROADMAP.md queue 1 "
-            "item 10: it needs util/lensdistortion and raw decoding)")
+            "the iss mapping provider is not ported yet (ROADMAP.md section "
+            "1 item 4: it needs util/lensdistortion and raw decoding)")
     raise ValueError(source_type)
 
 
@@ -143,7 +143,7 @@ def _writer(fmt):
 
 
 def convert_mapping(mapping, args, out_folder, device="cuda"):
-    from auromat_tpu_torch.resample import resample
+    from auromat_tpu_torch.resample import resample, resample_mlat_mlt
 
     # skip-existing BEFORE the expensive mask+resample (the identifier is
     # unchanged by resampling)
@@ -152,14 +152,14 @@ def convert_mapping(mapping, args, out_folder, device="cuda"):
     if os.path.exists(out_path) and not args.overwrite:
         print(f"skipping {out_path} (exists)")
         return out_path
-    if args.grid == "mag":
-        raise NotImplementedError(
-            "--grid mag needs resample_mlat_mlt, which is not ported yet")
     if args.min_elevation is not None:
         mapping = mapping.maskedByElevation(args.min_elevation)
     if args.grid == "geo":
         mapping = resample(mapping, arcsec_per_px=args.arcsecperpx,
                            method="mean", device=device)
+    elif args.grid == "mag":
+        mapping = resample_mlat_mlt(mapping, arcsec_per_px=args.arcsecperpx,
+                                    method="mean", device=device)
     _writer(args.format).write(out_path, mapping,
                                includeBounds=not args.without_bounds,
                                includeMagCoords=not args.without_mag)

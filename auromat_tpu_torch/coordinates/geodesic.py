@@ -3,10 +3,11 @@ data model and resampling use.
 
 A copy of the jax-free ``auromat_tpu.coordinates.geodesic`` (importing it
 would import jax through ``auromat_tpu/__init__``), cut to
-:func:`angular_distance` (resample resolution) and
-:func:`contains_or_crosses_pole` (bounding boxes), with the vectorized
-Vincenty inverse problem they call. Distances, destinations and geodesic
-lines wait until a ported caller needs them.
+:func:`angular_distance` (resample resolution, pixel scales),
+:func:`contains_or_crosses_pole` (bounding boxes) and :func:`distance`/
+:func:`intermediate` (``BoundingBox.center``/``size``), with the
+vectorized Vincenty inverse and direct problems they call. Courses,
+destinations and geodesic lines wait until a ported caller needs them.
 """
 
 from collections import namedtuple
@@ -270,11 +271,67 @@ def _inverse_antipodal(lat1, lon1, lat2, lon2):
     return s, sigma12, azi1, azi2
 
 
+def _direct(lat1, lon1, azi1, s, iterations=30):
+    """Vectorized Vincenty direct problem.
+
+    :param s: distance in meters
+    :returns: (lat2 deg, lon2 deg, azi2 deg)
+    """
+    lat1, lon1, azi1, s = map(lambda x: np.asarray(x, dtype=np.float64),
+                              (lat1, lon1, azi1, s))
+    alpha1 = np.deg2rad(azi1)
+    u1 = np.arctan((1 - _F) * np.tan(np.deg2rad(lat1)))
+    su1, cu1 = np.sin(u1), np.cos(u1)
+    sa1, ca1 = np.sin(alpha1), np.cos(alpha1)
+    sigma1 = np.arctan2(np.tan(u1), ca1)
+    sin_alpha = cu1 * sa1
+    cos2_alpha = 1 - sin_alpha**2
+    big_a, big_b = _vincenty_ab(cos2_alpha)
+
+    sigma = s / (_B * big_a)
+    for _ in range(iterations):
+        cos_2sm = np.cos(2 * sigma1 + sigma)
+        d_sigma = _vincenty_delta_sigma(big_b, np.sin(sigma), np.cos(sigma),
+                                        cos_2sm)
+        sigma = s / (_B * big_a) + d_sigma
+
+    ss, cs = np.sin(sigma), np.cos(sigma)
+    cos_2sm = np.cos(2 * sigma1 + sigma)
+    lat2 = np.arctan2(
+        su1 * cs + cu1 * ss * ca1,
+        (1 - _F) * np.sqrt(sin_alpha**2 + (su1 * ss - cu1 * cs * ca1) ** 2),
+    )
+    lam = np.arctan2(ss * sa1, cu1 * cs - su1 * ss * ca1)
+    c = _F / 16 * cos2_alpha * (4 + _F * (4 - 3 * cos2_alpha))
+    ell = lam - (1 - c) * _F * sin_alpha * (
+        sigma + c * ss * (cos_2sm + c * cs * (-1 + 2 * cos_2sm**2))
+    )
+    lon2 = lon1 + np.rad2deg(ell)
+    lon2 = (lon2 + 180.0) % 360.0 - 180.0
+    azi2 = np.rad2deg(np.arctan2(sin_alpha, -(su1 * ss - cu1 * cs * ca1)))
+    return np.rad2deg(lat2), lon2, azi2
+
+
+def distance(location1, location2):
+    """Shortest distance in meters between two (lat, lon) locations."""
+    s, _, _, _ = _inverse(location1[0], location1[1], location2[0], location2[1])
+    return float(s) if np.ndim(s) == 0 else s
+
+
 def angular_distance(location1, location2):
     """Arc length in degrees on the auxiliary sphere (geographiclib a12)."""
     _, sigma, _, _ = _inverse(location1[0], location1[1], location2[0], location2[1])
     a = np.rad2deg(sigma)
     return float(a) if np.ndim(a) == 0 else a
+
+
+def intermediate(location1, location2, f=0.5):
+    """Point at fraction f of the geodesic from location1 to location2."""
+    s, _, azi1, _ = _inverse(location1[0], location1[1], location2[0], location2[1])
+    lat2, lon2, _ = _direct(location1[0], location1[1], azi1, s * f)
+    if np.ndim(lat2) == 0:
+        return Location(float(lat2), float(lon2))
+    return lat2, lon2
 
 
 def _course_delta_sum(points):

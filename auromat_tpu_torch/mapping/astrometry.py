@@ -8,9 +8,10 @@ computed straight from the J2000 intersections, like the reference
 (astrometry.py:170-198).
 
 The JAX package's ``"df64"`` double-float chain exists because TPUs have
-no float64; here ``dtype="df64"`` is native float64 on any device. Only
-TAN headers (every astrometry.net solution) are ported; other
-projections raise (ROADMAP queue 1 item 8).
+no float64; here ``dtype="df64"`` is native float64 on any device and
+for every projection family. TAN headers (every astrometry.net solution)
+take the fused trig-free path; any other projection :func:`make_wcs`
+builds goes through the generic plane->native->celestial chain.
 """
 
 from datetime import datetime
@@ -20,7 +21,7 @@ import numpy.ma as ma
 import torch
 
 from auromat_tpu_torch.coordinates.frames import FrameMatrices
-from auromat_tpu_torch.coordinates.wcs import TanWcs
+from auromat_tpu_torch.coordinates.wcs import TanWcs, make_wcs
 from auromat_tpu_torch.mapping.mapping import Mapping
 from auromat_tpu_torch.ops.georef import (GeorefParams, georeference,
                                           georeference_generic)
@@ -35,6 +36,13 @@ def create_mapping(wcs_header, img, camera_pos, photo_time: datetime,
                    fast_center=True, with_mlatmlt=True, dtype=torch.float64,
                    frame_matrices=None, device="cuda") -> AstrometryMapping:
     """Georeference an image with a WCS solution into a Mapping.
+
+    TAN headers take the fused fast path; any other supported FITS
+    projection (the full Paper II catalogue of
+    :func:`auromat_tpu_torch.coordinates.wcs.make_wcs`) routes through the
+    generic plane->native->celestial chain into the same intersection/
+    Bowring/elevation/MLat-MLT pipeline — the reference georeferences
+    such headers through its astropy fallback (reference wcs.py:18-64).
 
     :param wcs_header: FITS header dict (astrometry.net .wcs solution)
     :param img: (h, w[, C]) uint8/uint16 image matching IMAGEW/IMAGEH
@@ -53,7 +61,16 @@ def create_mapping(wcs_header, img, camera_pos, photo_time: datetime,
     try:
         wcs = TanWcs(wcs_header)
     except ValueError:
-        return georeference_generic(wcs_header)  # raises: not ported yet
+        wcs = make_wcs(wcs_header)  # any supported FITS projection
+        if (wcs_header.get("CTYPE1") or "")[:5] != "RA---":
+            # the georef chain reads pixel directions as GCRS~ICRS; a
+            # galactic/ecliptic header would be silently mis-framed
+            raise ValueError(
+                "georeferencing needs an equatorial (RA---/DEC--) WCS; "
+                f"got {wcs_header.get('CTYPE1')!r} (use coordinates.wcs."
+                "pix2world directly for non-equatorial imagery)")
+        if wcs.width is None or wcs.height is None:
+            wcs.width, wcs.height = w, h  # non-astrometry.net headers
     if (w, h) != (wcs.width, wcs.height):
         raise ValueError(f"image is {w}x{h}, the WCS solution "
                          f"{wcs.width}x{wcs.height}")
@@ -61,8 +78,14 @@ def create_mapping(wcs_header, img, camera_pos, photo_time: datetime,
     params = GeorefParams.from_wcs(wcs, camera_pos, photo_time, altitude, fm)
     if isinstance(dtype, str):
         fast_center = False  # the df64 chain computes exact centres
-    out = georeference(params, fast_center=fast_center,
-                       with_mlatmlt=with_mlatmlt, dtype=dtype, device=device)
+    if isinstance(wcs, TanWcs):
+        out = georeference(params, fast_center=fast_center,
+                           with_mlatmlt=with_mlatmlt, dtype=dtype,
+                           device=device)
+    else:
+        out = georeference_generic(wcs, params, fast_center=fast_center,
+                                   with_mlatmlt=with_mlatmlt, dtype=dtype,
+                                   device=device)
     get = lambda k: out[k].to(device="cpu", dtype=torch.float64).numpy()
     mapping = AstrometryMapping(
         get("lats"), get("lons"), get("lats_center"), get("lons_center"),

@@ -1,9 +1,6 @@
 """Core data model: a georeferenced image with NaN-masked coordinate grids.
 
-Counterpart of ``auromat_tpu.mapping.mapping``, cut to what
-:func:`auromat_tpu_torch.mapping.astrometry.create_mapping`,
-:func:`auromat_tpu_torch.resample.resample`, the exporters and the convert
-CLI use. As in the JAX package the
+Counterpart of ``auromat_tpu.mapping.mapping``. As in the JAX package the
 geometry stays on the host: a :class:`Mapping` holds numpy float64 arrays
 where NaN is the mask, with numpy masked-array views for API familiarity,
 and the mask-consistency invariants (reference mapping.py:295-316) are
@@ -16,21 +13,45 @@ Mask invariants (identical to the reference):
   - a corner is defined iff at least one adjacent centre is defined
   - a centre is defined iff all 4 of its corners are defined
 
-Not ported yet: ``maskedByPolygon``, ``convert_mapping_to_sm``,
-centroid, pixel scales, ``BoundingBox.center``/``size``, and
-``MaskByElevationProvider``.
+Where the arithmetic runs: a property or method of :class:`Mapping`
+cannot be told a device, so its tensor arithmetic (``mLatMlt``,
+``cameraFootpoint``, ``maskedByPolygon``'s pole rotation) is float64 torch
+on the CPU, next to the host arrays it reads. The module's functions that
+do per-pixel work on whole grids (:func:`inflated_earth_intersection`,
+:func:`convert_sm_mapping_to_geo`) take ``device="cuda"`` like every other
+entry point and raise without a card.
 """
+
+import copy as _copy
+from collections import namedtuple
 
 import numpy as np
 import numpy.ma as ma
 import torch
 
 from auromat_tpu_torch import utils
+from auromat_tpu_torch.constants import EARTH_RADIUS, WGS84_A, WGS84_B
+from auromat_tpu_torch.coordinates import geodesic
 from auromat_tpu_torch.coordinates.frames import FrameMatrices
 from auromat_tpu_torch.coordinates.geodesic import (Location,
                                                     contains_or_crosses_pole)
+from auromat_tpu_torch.coordinates.intersection import (
+    ellipsoid_line_intersection, sphere_line_intersection)
 from auromat_tpu_torch.coordinates.transform import (geo_to_mlat_mlt,
-                                                     geodetic_to_ecef)
+                                                     geodetic_to_ecef,
+                                                     j2000_to_latlon,
+                                                     mlt_to_sm_lon,
+                                                     rotate_pole,
+                                                     sm_to_latlon)
+from auromat_tpu_torch.ops.georef import compute_device
+
+Size = namedtuple("Size", ["width", "height"])
+PixelScales = namedtuple("PixelScales", ["width", "height", "diagonal"])
+PixelScale = namedtuple("PixelScale", ["mean", "median", "min", "max"])
+MappingProperties = namedtuple(
+    "MappingProperties",
+    "altitude cameraPosGCRS boundingBox photoTime centroid cameraFootpoint identifier",
+)
 
 
 class BoundingBox:
@@ -48,6 +69,7 @@ class BoundingBox:
         self._lonWest = float(lonWest)
         self._latNorth = float(latNorth)
         self._lonEast = float(lonEast)
+        self._min_rect = None
 
     latSouth = property(lambda self: self._latSouth)
     lonWest = property(lambda self: self._lonWest)
@@ -69,6 +91,50 @@ class BoundingBox:
             and self._lonEast == 180
             and (self._latNorth == 90 or self._latSouth == -90)
         )
+
+    def _min_spherical_rectangle(self):
+        """(center, Size(km)) of the smallest spherical rectangle fitting the
+        box (used as stereographic projection parameters for drawing).
+        Reference: mapping.py:119-172."""
+        if self._min_rect is not None:
+            return self._min_rect
+        if self.containsPole:
+            if self._latNorth == 90:
+                center = Location(90.0, 0.0)
+                width = geodesic.distance(center, Location(self._latSouth, 0.0)) * 2
+            else:
+                center = Location(-90.0, 0.0)
+                width = geodesic.distance(center, Location(self._latNorth, 0.0)) * 2
+            size = Size(width / 1000, width / 1000)
+        else:
+            lon_west, lon_east = self._lonWest, self._lonEast
+            if lon_west > lon_east:
+                lon_east += 360
+            lonc = utils.wrap_lon_180((lon_west + lon_east) / 2)
+            width = geodesic.distance(self.bottomLeft, self.bottomRight)
+            width2 = geodesic.distance(self.topLeft, self.topRight)
+            if width2 > width:
+                width = width2
+                bottom_center = geodesic.intermediate(self.bottomLeft, self.bottomRight, 0.5)
+                top_center = Location(self._latNorth, float(lonc))
+                height = geodesic.distance(top_center, bottom_center)
+                center = geodesic.intermediate(top_center, bottom_center, 0.5)
+            else:
+                top_center = geodesic.intermediate(self.topLeft, self.topRight, 0.5)
+                bottom_center = Location(self._latSouth, float(lonc))
+                height = geodesic.distance(bottom_center, top_center)
+                center = geodesic.intermediate(bottom_center, top_center, 0.5)
+            size = Size(width / 1000, height / 1000)
+        self._min_rect = (center, size)
+        return self._min_rect
+
+    @property
+    def center(self):
+        return self._min_spherical_rectangle()[0]
+
+    @property
+    def size(self):
+        return self._min_spherical_rectangle()[1]
 
     @staticmethod
     def mergedBoundingBoxes(boxes):
@@ -164,6 +230,45 @@ def sanitize_masks(corner_mask, center_mask, after_masking=False):
     return corner_mask, center_mask
 
 
+def check_guarantees(mapping):
+    """Assert the mask invariants hold (test oracle; reference
+    mapping.py:362-428)."""
+    lats, lons = mapping.lats, mapping.lons
+    lats_c, lons_c = mapping.latsCenter, mapping.lonsCenter
+    img = mapping.img
+    elevation = mapping.elevation
+    mlat, mlt = mapping.mLatMlt
+    mlat_c, mlt_c = mapping.mLatMltCenter
+
+    assert not np.any(np.isnan(lats)), "masked arrays must not contain NaN"
+    assert not np.any(np.isnan(lats_c))
+    assert not np.any(np.isnan(mlat))
+    if elevation is not None:  # CDF/netCDF files without zenith_angle
+        assert not np.any(np.isnan(elevation))
+
+    cm = ma.getmaskarray(lats)
+    assert np.array_equal(cm, ma.getmaskarray(lons))
+    ccm = ma.getmaskarray(lats_c)
+    assert np.array_equal(ccm, ma.getmaskarray(lons_c))
+
+    padded = np.zeros((ccm.shape[0] + 2, ccm.shape[1] + 2), dtype=bool)
+    padded[1:-1, 1:-1] = ~ccm
+    assert np.all(cm | padded[1:, 1:] | padded[1:, :-1] | padded[:-1, :-1] | padded[:-1, 1:])
+
+    ok = ~cm
+    assert np.all(ccm | (ok[:-1, :-1] & ok[1:, :-1] & ok[1:, 1:] & ok[:-1, 1:]))
+
+    img_mask = np.atleast_3d(ma.getmaskarray(img))  # grayscale img may be 2D
+    for d in range(img_mask.shape[2]):
+        assert np.array_equal(img_mask[:, :, d], ccm)
+    if elevation is not None:
+        assert np.array_equal(ma.getmaskarray(elevation), ccm)
+    assert np.array_equal(ma.getmaskarray(mlat_c), ccm)
+    assert np.array_equal(ma.getmaskarray(mlt_c), ccm)
+    assert np.array_equal(ma.getmaskarray(mlat), cm)
+    assert np.array_equal(ma.getmaskarray(mlt), cm)
+
+
 def check_plate_carree(lats, lons):
     """Raise ValueError unless lats/lons form a regular plate-carree grid.
 
@@ -254,6 +359,8 @@ class Mapping:
         self._mlatmlt_center = mlat_mlt_center
         self._outlines = None
         self._bounding_box = None
+        self._centroid = None
+        self._pixel_scales = None
 
     @staticmethod
     def _data(a):
@@ -304,6 +411,26 @@ class Mapping:
     def img_unmasked(self):
         return self._img
 
+    @property
+    def rgb(self):
+        # rgb_unmasked is always (h, w, 3); the img mask is (h, w, C) with
+        # C possibly 1 (grayscale) — rebuild at 3 channels
+        mask = np.repeat(self.center_mask[:, :, None], 3, 2)
+        return ma.masked_array(self.rgb_unmasked, mask)
+
+    @property
+    def rgb_unmasked(self):
+        img = self._img
+        if img.dtype == np.uint16:
+            img = (img.astype(np.float64) * (255 / 65535)).astype(np.uint8)
+        elif img.dtype != np.uint8:
+            raise NotImplementedError(str(img.dtype))
+        if img.shape[2] == 3:
+            return img
+        if img.shape[2] == 1:
+            return np.repeat(img, 3, 2)
+        raise NotImplementedError("unknown img format")
+
     # ---- scalar metadata
 
     altitude = property(lambda self: self._altitude)
@@ -317,6 +444,26 @@ class Mapping:
         if self._frame_matrices is None:
             self._frame_matrices = FrameMatrices(self._photo_time)
         return self._frame_matrices
+
+    @property
+    def cameraFootpoint(self):
+        """Geodetic location below the camera (float64 torch on the CPU)."""
+        lat, lon = j2000_to_latlon(
+            torch.from_numpy(self._camera_pos[None, :].copy()),
+            self.frame_matrices.j2000_to_geo)
+        return Location(float(lat[0]), float(lon[0]))
+
+    @property
+    def properties(self):
+        return MappingProperties(
+            altitude=self.altitude,
+            cameraPosGCRS=self.cameraPosGCRS,
+            boundingBox=self.boundingBox,
+            photoTime=self.photoTime,
+            centroid=self.centroid,
+            cameraFootpoint=self.cameraFootpoint,
+            identifier=self.identifier,
+        )
 
     # ---- magnetic coordinates
 
@@ -411,6 +558,50 @@ class Mapping:
     def containsPole(self):
         return self.boundingBox.containsPole
 
+    @property
+    def centroid(self):
+        if self._centroid is None:
+            if self.containsPole:
+                raise NotImplementedError("centroid of pole-containing mapping")
+            outl = self.outline
+            if self.containsDiscontinuity:
+                lons = utils.wrap_lon_180(outl[:, 1] + 180.0)
+                lat, lon = utils.polygon_centroid(np.stack([outl[:, 0], lons], axis=-1))
+                self._centroid = Location(lat, float(utils.wrap_lon_180(lon + 180.0)))
+            else:
+                lat, lon = utils.polygon_centroid(outl)
+                self._centroid = Location(lat, lon)
+        return self._centroid
+
+    @property
+    def arcSecPerPx(self):
+        """Angular pixel sizes from 1000 sampled polygons; one vectorized
+        geodesic call per direction (the reference loops host-side because
+        geographiclib is scalar-only, mapping.py:786-843)."""
+        if self._pixel_scales is None:
+            ll = np.stack([self._lats, self._lons], axis=-1)
+            quads = np.stack(
+                [ll[:-1, :-1], ll[:-1, 1:], ll[1:, 1:], ll[1:, :-1]], axis=2
+            ).reshape(-1, 4, 2)
+            has_nan = np.isnan(quads).any(axis=(1, 2))
+            quads = quads[~has_nan]
+            count = quads.shape[0]
+            sample = min(count, 1000)
+            idx = np.round(np.linspace(0, count - 1, sample)).astype(int)
+            q = quads[idx]
+            scales = []
+            for i, j in ((0, 1), (1, 2), (0, 2)):
+                deg = geodesic.angular_distance(
+                    (q[:, i, 0], q[:, i, 1]), (q[:, j, 0], q[:, j, 1])
+                )
+                arcsec = np.asarray(deg) * 3600.0
+                scales.append(
+                    PixelScale(float(arcsec.mean()), float(np.median(arcsec)),
+                               float(arcsec.min()), float(arcsec.max()))
+                )
+            self._pixel_scales = PixelScales(*scales)
+        return self._pixel_scales
+
     # ---- masking
 
     def createMasked(self, center_mask):
@@ -461,6 +652,43 @@ class Mapping:
             raise ValueError(f"minElevation={min_elevation} would mask all pixels!")
         return self.createMasked(center_mask)
 
+    def maskedByPolygon(self, polygon):
+        """Mask pixels whose corners are not all inside the polygon.
+
+        Reference: auromat/mapping/mapping.py:866-917 (with the same
+        best-effort discontinuity/pole handling).
+        """
+        polygon = np.asarray(polygon, dtype=np.float64)
+        grid = np.stack([self._lats, self._lons], axis=-1).reshape(-1, 2)
+        poly_bb = BoundingBox.minimumBoundingBox(polygon)
+        poly_pole = contains_or_crosses_pole(polygon)
+        # pole FIRST: a pole-containing bbox spans -180..180 and therefore
+        # also reports containsDiscontinuity, but the 180-degree shift
+        # neither removes the pole singularity nor moves the polygon off
+        # the discontinuity -- only the pole rotation does (same order as
+        # _resample in resample.py)
+        if self.containsPole or poly_pole:
+            polygon = polygon.copy()
+            for arr in (grid, polygon):  # float64 torch on the CPU
+                la, lo = rotate_pole(
+                    torch.from_numpy(np.deg2rad(arr[:, 0])),
+                    torch.from_numpy(np.deg2rad(arr[:, 1])),
+                    self._altitude, angle_deg=90.0, axis=(1, 0, 0),
+                )
+                arr[:, 0] = np.rad2deg(la.numpy())
+                arr[:, 1] = np.rad2deg(lo.numpy())
+        elif self.containsDiscontinuity or poly_bb.containsDiscontinuity:
+            polygon = polygon.copy()
+            grid[:, 1] = utils.wrap_lon_180(grid[:, 1] + 180.0)
+            polygon[:, 1] = utils.wrap_lon_180(polygon[:, 1] + 180.0)
+        with np.errstate(invalid="ignore"):
+            inside = utils.points_inside_polygon(grid, polygon).reshape(self._lats.shape)
+        mask = ~inside | self.corner_mask
+        if np.all(mask):
+            raise ValueError("the given polygon would mask all pixels!")
+        center_mask = mask[:-1, :-1] | mask[1:, :-1] | mask[:-1, 1:] | mask[1:, 1:]
+        return self.createMasked(center_mask)
+
     # ---- conversion/creation
 
     def createResampled(self, lats, lons, lats_center, lons_center, elevation, img):
@@ -469,6 +697,9 @@ class Mapping:
             self._camera_pos, self._photo_time, self._identifier,
             metadata=self._metadata, frame_matrices=self._frame_matrices,
         )
+
+    def checkGuarantees(self):
+        check_guarantees(self)
 
     @property
     def isPlateCarree(self):
@@ -549,3 +780,96 @@ class BaseMappingProvider:
 
     def getSequence(self, dateBegin=None, dateEnd=None):
         raise NotImplementedError
+
+
+def MaskByElevationProvider(provider, *args, **kw):
+    """Wrap a provider so every mapping is masked by elevation."""
+    provider = _copy.copy(provider)
+    orig_get, orig_get_by_id, orig_seq = provider.get, provider.getById, provider.getSequence
+    provider.get = lambda *a, **k: orig_get(*a, **k).maskedByElevation(*args, **kw)
+    provider.getById = lambda *a, **k: orig_get_by_id(*a, **k).maskedByElevation(*args, **kw)
+    provider.getSequence = lambda *a, **k: (
+        m.maskedByElevation(*args, **kw) for m in orig_seq(*a, **k)
+    )
+    # batched-pipeline dispatch probes hasattr(provider, "getSequenceBatched")
+    # (cli/convert.py): wrap it too, or batched consumers would silently get
+    # UNMASKED mappings from the copied provider
+    if hasattr(provider, "getSequenceBatched"):
+        orig_batched = provider.getSequenceBatched
+        provider.getSequenceBatched = lambda *a, **k: (
+            m.maskedByElevation(*args, **kw) for m in orig_batched(*a, **k)
+        )
+    return provider
+
+
+def inflated_earth_intersection(directions, camera_pos, earth_inflation=110,
+                                earth_model="wgs84", device="cuda"):
+    """Ray/inflated-Earth intersections (reference mapping.py:1474-1510) as
+    a host float64 array, computed in float64 on ``device`` (the card by
+    default; pass ``device="cpu"`` for the CPU). The fused pipelines in
+    :mod:`auromat_tpu_torch.ops.georef` carry their own intersection.
+    """
+    device = compute_device(device)
+    t = lambda a: torch.as_tensor(np.asarray(a, dtype=np.float64),
+                                  device=device)
+    if earth_model == "wgs84":
+        out = ellipsoid_line_intersection(
+            WGS84_A + earth_inflation, WGS84_B + earth_inflation,
+            t(camera_pos), t(directions))
+    elif earth_model == "sphere":
+        out = sphere_line_intersection(
+            EARTH_RADIUS + earth_inflation, t(camera_pos), t(directions))
+    else:
+        raise ValueError("unsupported earth model: " + earth_model)
+    return out.cpu().numpy()
+
+
+def convert_mapping_to_sm(mapping: Mapping) -> Mapping:
+    """Coordinates -> solar-magnetic lat/lon (for magnetic-grid resampling).
+
+    Reference: auromat/mapping/mapping.py:1519-1547. Host arithmetic only:
+    the mapping's MLat/MLT (precomputed by ``create_mapping``, else the
+    ``mLatMlt`` property) become the coordinates.
+    """
+    mlat, mlt = mapping.mLatMlt
+    mlat_c, mlt_c = mapping.mLatMltCenter
+    return Mapping(
+        np.asarray(mlat.filled(np.nan)), mlt_to_sm_lon(np.asarray(mlt.filled(np.nan))),
+        np.asarray(mlat_c.filled(np.nan)), mlt_to_sm_lon(np.asarray(mlt_c.filled(np.nan))),
+        np.asarray(mapping.elevation.filled(np.nan)) if mapping.elevation is not None else None,
+        mapping.altitude, mapping.img_unmasked, mapping.cameraPosGCRS,
+        mapping.photoTime, mapping.identifier, metadata=mapping.metadata,
+        sanitized=True, frame_matrices=mapping.frame_matrices,
+    )
+
+
+def convert_sm_mapping_to_geo(mapping: Mapping, device="cuda") -> Mapping:
+    """Inverse of :func:`convert_mapping_to_sm` (at the mapping altitude —
+    see sm_to_latlon for the deviation from the reference's unit-radius
+    version), in float64 on ``device``."""
+    device = compute_device(device)
+    fm = mapping.frame_matrices
+    # convert the UNDERLYING regular grids (resampled SM mappings keep
+    # regular coordinate data with the mask stored separately — the module
+    # convention), then carry the source masks over explicitly: deriving
+    # them from NaNs of the converted data would silently return an
+    # all-False corner mask
+    t = lambda a: torch.as_tensor(np.asarray(a, dtype=np.float64),
+                                  device=device)
+    lats, lons = sm_to_latlon(
+        t(mapping.lats.data), t(mapping.lons.data), fm.sm_to_geo,
+        altitude=mapping.altitude)
+    lats_c, lons_c = sm_to_latlon(
+        t(mapping.latsCenter.data), t(mapping.lonsCenter.data), fm.sm_to_geo,
+        altitude=mapping.altitude)
+    h = lambda a: a.cpu().numpy()
+    out = Mapping(
+        h(lats), h(lons), h(lats_c), h(lons_c),
+        np.asarray(mapping.elevation.filled(np.nan)) if mapping.elevation is not None else None,
+        mapping.altitude, mapping.img_unmasked, mapping.cameraPosGCRS,
+        mapping.photoTime, mapping.identifier, metadata=mapping.metadata,
+        sanitized=True, frame_matrices=fm,
+    )
+    out._corner_mask_arr = out._corner_mask_arr | mapping.corner_mask
+    out._center_mask_arr = out._center_mask_arr | mapping.center_mask
+    return out

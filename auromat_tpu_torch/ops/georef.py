@@ -31,7 +31,8 @@ import torch
 
 from auromat_tpu_torch.constants import WGS84_A, WGS84_B
 from auromat_tpu_torch.coordinates.frames import FrameMatrices
-from auromat_tpu_torch.coordinates.wcs import TanWcs
+from auromat_tpu_torch.coordinates.wcs import (TanWcs, ZenithalWcs,
+                                               pix2world_dirs)
 
 
 @dataclass(frozen=True)
@@ -306,13 +307,36 @@ def georeference(params: GeorefParams, fast_center=False, with_mlatmlt=True,
                               with_mlatmlt, dtype)
 
 
-def georeference_generic(wcs, params=None, fast_center=False,
+def _generic_dirs_fn(wcs, dtype):
+    def dirs(px, py):
+        return tuple(v.to(dtype) for v in pix2world_dirs(wcs, px, py, origin=0))
+    return dirs
+
+
+def georeference_generic(wcs, params: GeorefParams, fast_center=False,
                          with_mlatmlt=True, dtype=torch.float64, device="cuda"):
-    """Georeference a frame with a non-TAN projection: not ported yet (the
-    generic WCS projections on device are ROADMAP queue 1 item 8)."""
-    raise NotImplementedError(
-        "georeferencing non-TAN WCS headers is not ported yet (ROADMAP "
-        "queue 1 item 8, generic WCS on device); only TAN headers are")
+    """:func:`georeference` for ANY supported FITS projection.
+
+    Pixel directions come from the generic plane->native->celestial
+    chain of the :mod:`auromat_tpu_torch.coordinates.wcs` family classes
+    (``pix2world_dirs``) instead of the fused trig-free TAN
+    unprojection; the downstream chain — ray/ellipsoid intersection,
+    Bowring, elevation, MLat/MLT — is shared. This is the reference's
+    astropy-fallback georeferencing role (reference wcs.py:18-64 via
+    astrometry.py:49-64) for non-TAN headers; off-map pixels (e.g.
+    outside the SIN disc) produce NaN directions and flow into the NaN
+    masks naturally.
+
+    The chain is eager: each elementwise step is one full-frame
+    operation on ``device``, so an iterative inverse (PCO's bisection)
+    is several hundred of them. Header constants are Python floats
+    (``pix2world_dirs``), so a float32 call is float32 end to end.
+    """
+    dtype = _compute_dtype(dtype)
+    p = DynGeorefParams.from_static(params, compute_device(device), dtype)
+    return _georeference_body(p, params.width, params.height, fast_center,
+                              with_mlatmlt, dtype,
+                              dirs_fn=_generic_dirs_fn(wcs, dtype))
 
 
 def georeference_dyn(p: DynGeorefParams, width, height, fast_center=False,
@@ -324,10 +348,12 @@ def georeference_dyn(p: DynGeorefParams, width, height, fast_center=False,
                               dtype)
 
 
-def _georeference_body(p, width, height, fast_center, with_mlatmlt, dtype):
+def _georeference_body(p, width, height, fast_center, with_mlatmlt, dtype,
+                       dirs_fn=None):
+    dirs = dirs_fn or (lambda gx, gy: _pixel_dirs(p, gx, gy))
     dev = p.cd.device
     px, py = _grid(width, height, True, dtype, dev)
-    vx, vy, vz = _pixel_dirs(p, px, py)
+    vx, vy, vz = dirs(px, py)
     ix, iy, iz = _intersect(p, vx, vy, vz, dtype)
     lats, lons = _latlon_from_j2000(p, ix, iy, iz)
     out = {"lats": lats, "lons": lons}
@@ -338,7 +364,7 @@ def _georeference_body(p, width, height, fast_center, with_mlatmlt, dtype):
         cix, ciy, ciz = mean4(ix), mean4(iy), mean4(iz)
     else:
         cpx, cpy = _grid(width, height, False, dtype, dev)
-        cvx, cvy, cvz = _pixel_dirs(p, cpx, cpy)
+        cvx, cvy, cvz = dirs(cpx, cpy)
         cix, ciy, ciz = _intersect(p, cvx, cvy, cvz, dtype)
 
     out["lats_center"], out["lons_center"] = _latlon_from_j2000(p, cix, ciy, ciz)
@@ -348,3 +374,97 @@ def _georeference_body(p, width, height, fast_center, with_mlatmlt, dtype):
         out["mlat_center"], out["mlt_center"] = _mlatmlt_from_j2000(
             p, cix, ciy, ciz)
     return out
+
+
+def _points(px, py, dtype, device):
+    t = lambda a: torch.as_tensor(
+        a if torch.is_tensor(a) else np.asarray(a)).to(device=device,
+                                                       dtype=dtype)
+    return t(px), t(py)
+
+
+def georeference_points(params: GeorefParams, px, py, dtype=torch.float64,
+                        device="cuda"):
+    """Georeference arbitrary pixel coordinates (0-based pixel centres;
+    the chain of :func:`georeference` on an explicit point set).
+
+    :returns: (lat, lon) degree tensors on ``device``
+    """
+    dtype = _compute_dtype(dtype)
+    device = compute_device(device)
+    p = DynGeorefParams.from_static(params, device, dtype)
+    px, py = _points(px, py, dtype, device)
+    out = georef_latlon_dyn(p, px, py, dtype)
+    return out["lat"], out["lon"]
+
+
+def _points_chain(params, px, py, dtype, device, dirs_fn, with_elevation,
+                  with_mlatmlt):
+    p = DynGeorefParams.from_static(params, device, dtype)
+    px, py = _points(px, py, dtype, device)
+    vx, vy, vz = dirs_fn(px, py) if dirs_fn else _pixel_dirs(p, px, py)
+    ix, iy, iz = _intersect(p, vx, vy, vz, dtype)
+    out = dict(zip(("lat", "lon"), _latlon_from_j2000(p, ix, iy, iz)))
+    if with_elevation:
+        out["elevation"] = _elevation_deg(vx, vy, vz, ix, iy, iz)
+    if with_mlatmlt:
+        out["mlat"], out["mlt"] = _mlatmlt_from_j2000(p, ix, iy, iz)
+    return out
+
+
+def georeference_points_generic(wcs, params: GeorefParams, px, py,
+                                dtype=torch.float64, with_elevation=False,
+                                device="cuda"):
+    """:func:`georeference_points` for ANY supported FITS projection.
+
+    Directions come from the generic plane->native->celestial chain
+    (:func:`auromat_tpu_torch.coordinates.wcs.pix2world_dirs`, the
+    reference's astropy-fallback role — reference wcs.py:18-64) instead
+    of the fused TAN unprojection; intersection and Bowring are shared.
+
+    :returns: (lat, lon[, elevation]) degree tensors on ``device``
+    """
+    dtype = _compute_dtype(dtype)
+    out = _points_chain(params, px, py, dtype, compute_device(device),
+                        _generic_dirs_fn(wcs, dtype), with_elevation, False)
+    if with_elevation:
+        return out["lat"], out["lon"], out["elevation"]
+    return out["lat"], out["lon"]
+
+
+def georeference_points_df64_full(params: GeorefParams, px, py,
+                                  with_elevation=True, with_mlatmlt=True,
+                                  projection="TAN", wcs=None, device="cuda"):
+    """Full-precision chain over every exported per-pixel variable (lat,
+    lon, elevation, mlat, mlt) as a dict of host float64 arrays, NaN where
+    the ray misses.
+
+    The JAX package computes this in (hi, lo) float32 pairs because its
+    device has no float64; here it is the native float64 chain on
+    ``device``, and it takes every projection family: ``projection``
+    names a radial zenithal law (TAN fused; SIN/ZEA/ARC/STG from the
+    calibration), ``wcs`` any object :func:`make_wcs` builds (it then
+    decides the projection). The variable set is selectable as in the JAX
+    package (``with_elevation``, ``with_mlatmlt``).
+    """
+    dirs_fn = None
+    if wcs is not None and not isinstance(wcs, TanWcs):
+        dirs_fn = _generic_dirs_fn(wcs, torch.float64)
+    elif wcs is None and projection != "TAN":
+        dirs_fn = _generic_dirs_fn(
+            ZenithalWcs.from_calibration(projection, params.cd, params.rotmat,
+                                         params.px_ref, params.py_ref),
+            torch.float64)
+    out = _points_chain(params, px, py, torch.float64,
+                        compute_device(device), dirs_fn, with_elevation,
+                        with_mlatmlt)
+    return {k: v.cpu().numpy() for k, v in out.items()}
+
+
+def georeference_points_df64(params: GeorefParams, px, py, device="cuda"):
+    """Full-precision (lat_deg, lon_deg) host float64 arrays of a TAN
+    calibration: native float64 on ``device`` (see
+    :func:`georeference_points_df64_full`)."""
+    out = georeference_points_df64_full(params, px, py, with_elevation=False,
+                                        with_mlatmlt=False, device=device)
+    return out["lat"], out["lon"]

@@ -30,10 +30,11 @@ The interpolation methods route as the JAX package's do (resample.py:
   (:func:`auromat_tpu_torch.utils.points_inside_polygon`).
 
 :func:`mosaic` composes a collection by elevation priority with
-``bin_take_best`` on ``device``. Not ported: ``resample_mlat_mlt`` (needs
-``convert_mapping_to_sm``); nor the JAX package's TPU workarounds here
-(``host_f64_device``, ``_initialized_backend_is_tpu``): host math is numpy
-or CPU torch in float64 directly.
+``bin_take_best`` on ``device``. :func:`resample_mlat_mlt` resamples in
+solar-magnetic coordinates, so that MLat/MLT become the regular grids. The
+JAX package's TPU workarounds (``host_f64_device``,
+``_initialized_backend_is_tpu``) have no counterpart here: host math is
+numpy or CPU torch in float64 directly.
 """
 
 from functools import partial as _partial
@@ -45,7 +46,9 @@ from auromat_tpu_torch.coordinates import geodesic
 from auromat_tpu_torch.coordinates.geodesic import Location
 from auromat_tpu_torch.coordinates.transform import rotate_pole
 from auromat_tpu_torch.mapping.mapping import (BoundingBox, Mapping,
-                                               MappingCollection)
+                                               MappingCollection,
+                                               convert_mapping_to_sm,
+                                               convert_sm_mapping_to_geo)
 from auromat_tpu_torch.ops.georef import compute_device
 from auromat_tpu_torch.ops.regrid import (bin_mean, bin_nearest,
                                           bin_take_best, fixed_grid,
@@ -174,6 +177,17 @@ def resample(mapping_or_collection, px_per_deg=25, arcsec_per_px=None,
     if img3.shape[2] == 1:
         img_r = img_r[..., 0]
     return mapping.createResampled(lats, lons, lats_c, lons_c, elevation_r, img_r)
+
+
+def resample_mlat_mlt(mapping, device="cuda", **kw):
+    """Resample so MLat/MLT become regular grids (reference resample.py:63-71):
+    the mapping in solar-magnetic coordinates through :func:`resample`
+    (``**kw``), then back to geodetic coordinates at the mapping altitude,
+    both on ``device`` (the card by default; ``device="cpu"`` for the CPU)."""
+    device = compute_device(device)
+    sm = convert_mapping_to_sm(mapping)
+    sm_resampled = resample(sm, device=device, **kw)
+    return convert_sm_mapping_to_geo(sm_resampled, device=device)
 
 
 def _rotate_pole_deg(la_deg, lo_deg, angle, altitude):

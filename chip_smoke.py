@@ -5,8 +5,10 @@ Drives the port's main path — georeference the real 12 MP ISS frame
 ISS030-E-102170 (4256x2832) and mean-regrid it onto the 539x524 fixed grid
 — through ``auromat_tpu_torch.entry``, then the public slice
 ``create_mapping`` -> ``resample('mean')`` of the same frame, the sequence
-mosaic and the all-sky-imager path (THEMIS and MIRACLE providers,
-``mosaic``, the interpolation routes, ``convert``), and checks them:
+mosaic, the all-sky-imager path (THEMIS and MIRACLE providers,
+``mosaic``, the interpolation routes, ``convert``), the magnetic grid
+(``resample_mlat_mlt``) and georeferencing through the generic FITS
+projections, and checks them:
 
 1. the card (``nvidia-smi`` name and power limit);
 2. starts the build of every kernel source from this checkout, one nvcc
@@ -89,7 +91,42 @@ mosaic and the all-sky-imager path (THEMIS and MIRACLE providers,
     (one tick, 24 files; a file's filled cells equal ``resample`` on the
     card) and on a MIRACLE folder of two seeded frames (saved with numpy
     under MIRACLE file names, read through ``np.load`` in place of the
-    JPEG reader): two files, K1 launched.
+    JPEG reader): two files, K1 launched;
+19. the magnetic (MLat/MLT) grid: the array-built mapping of phase 8
+    through ``resample_mlat_mlt(px_per_deg=25, contains_pole=False)`` on
+    the card with the 'auto' route (must launch K1) and 'pallas_taint'
+    (must launch K2), counters zeroed before each: longitudes within 1e-9
+    deg and elevation within 1e-4 of
+    golden_resample_mlatmlt_ISS030-E-102170_dc.npz with the same mask
+    cells; equal to the same call on the CPU (grids 1e-9 deg, masks
+    equal, uint8 equal); K1 and K2 on the solar-magnetic mapping's own
+    arguments (recorded from that run) bit-equal to their plain versions
+    and timed; the path's wall time, and the device time inside it read
+    from a profiler trace of one call (kernels and copies), beside the
+    binning and the grid's SM -> geodetic conversion each run again alone;
+20. georeferencing through the generic FITS projections: the frame's
+    header with its CTYPE swapped (LONPOLE/LATPOLE dropped).
+    ``georeference_generic`` for ZEA at the full frame (fast centres,
+    MLat/MLT, float32) timed as ``generic_ms``;
+    ``georeference_points_generic`` at every 8th pixel for ZEA, HPX and
+    QSC in float32 against float64 on the card (``generic_parity_deg``:
+    under 1e-2 deg over the rays that meet the shell at 0.25 deg of
+    elevation or more, the number of grazing rays left out and their worst
+    point printed; mask mismatch at most 5e-4; the CPU's float32 chain
+    held and printed the same way), and for ZEA, HPX, QSC and PCO in
+    float64 on the card against
+    the CPU (1e-9 deg, masks equal); PCO's eager bisection on the full
+    frame timed, its every 8th pixel equal to the CPU's; ``create_mapping``
+    on the ZEA header -> ``resample('mean')``: K1 launched, equal to the
+    plain ('sorted') binning on the card and to the CPU, K1 on that
+    mapping's arguments bit-equal to its plain version;
+21. the full-precision point functions (native float64 here):
+    ``georeference_points_df64`` and ``_df64_full`` on the card against
+    golden_georef_ISS030-E-102170_dc.npz (< 1e-6, masks equal), and the
+    times of those public functions at the 12 MP frame, host arrays
+    included, as ``df64_georef_ms``, ``df64_full_ms`` and
+    ``df64_zen_full_ms`` (the ZEA radial law), each beside its kernel and
+    copy time from a profiler trace.
 
 Every kernel row gets, beside its time and its plain version's, its bound
 (``bound_ms``: the bytes the function must move — every index, the data
@@ -128,6 +165,8 @@ RES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
                    "resources")
 GOLDEN = os.path.join(RES, "golden_georef_ISS030-E-102170_dc.npz")
 GOLDEN_RESAMPLE = os.path.join(RES, "golden_resample_ISS030-E-102170_dc.npz")
+GOLDEN_MLATMLT = os.path.join(
+    RES, "golden_resample_mlatmlt_ISS030-E-102170_dc.npz")
 SEQ_WCS = [os.path.join(RES, "seq", f"ISS029-E-{n}.wcs")
            for n in range(8493, 8503)]
 GLOBAL_005 = (20, -89.999, 89.999, -179.999, 179.999)  # 0.05 deg, 3599x7199
@@ -156,6 +195,32 @@ def cuda_ms(torch, fn, reps):
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def device_busy_ms(torch, fn):
+    """Device time of one ``fn()`` as the profiler's device trace shows it:
+    (ms in kernels, ms in copies and memsets, number of kernels), each the
+    sum of the events' own durations; None where the trace recorded no
+    device event."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels_us = copies_us = n_kernels = 0
+    for evt in prof.events():
+        if evt.device_type != DeviceType.CUDA or evt.is_user_annotation:
+            continue
+        if evt.name.startswith(("Memcpy", "Memset")):
+            copies_us += evt.self_device_time_total
+        else:
+            kernels_us += evt.self_device_time_total
+            n_kernels += 1
+    if n_kernels == 0:
+        return None
+    return kernels_us / 1e3, copies_us / 1e3, n_kernels
 
 
 def start_builds(kernels):
@@ -1343,6 +1408,416 @@ def asi_phases(torch, np, card):
                       k_ms, p_ms, k1_bytes, lib_ms)
 
 
+class recorded:
+    """Within the block, ``module.name`` also appends each call's positional
+    arguments to ``self.calls[name]``; the functions are put back after."""
+
+    def __init__(self, *targets):
+        self.targets, self.calls, self.real = targets, {}, {}
+
+    def __enter__(self):
+        for module, name in self.targets:
+            real = self.real[name] = getattr(module, name)
+            calls = self.calls[name] = []
+            setattr(module, name, lambda *a, _r=real, _c=calls, **k: (
+                _c.append(a), _r(*a, **k))[1])
+        return self
+
+    def __exit__(self, *exc):
+        for module, name in self.targets:
+            setattr(module, name, self.real[name])
+
+
+def gate_card_vs_cpu(np, name, r, cpu):
+    """A resampled mapping from the card against the same call on the CPU:
+    grids within 1e-9 deg, masks equal, uint8 image equal."""
+    gerr = 0.0
+    for key in ("lats", "lons", "latsCenter", "lonsCenter"):
+        a, b = getattr(r, key).data, getattr(cpu, key).data
+        if a.shape != b.shape:
+            raise AssertionError(f"{name}: {key} {a.shape} != {b.shape}")
+        d = np.abs(a - b)
+        if key.startswith("lons"):
+            d = np.minimum(d, 360.0 - d)
+        gerr = max(gerr, float(np.nanmax(d)))
+    step, _ = gate_routes(np, name, r, cpu)
+    if not (gerr < 1e-9 and step == 0 and
+            np.array_equal(r.corner_mask, cpu.corner_mask)):
+        raise AssertionError(f"{name}: grids {gerr} deg, uint8 step {step}")
+    return gerr
+
+
+def kernels_on_recorded(torch, rec, card, tag, label):
+    """K1 and K2 on the arguments a resample recorded (``rec.calls``), each
+    against its plain version (bit-equal) and timed in turns with it and
+    with one int64 ``index_add_``; {kernel: (err, ms, plain_ms, bytes,
+    library_ms, valid samples, shape)}."""
+    from auromat_tpu_torch.ops import regrid_pallas as rp
+    from auromat_tpu_torch.ops.georegrid import bin_rgbelev_plain
+
+    res = {}
+    for name, key in (("K1", "bin_rgbelev_from_indices"),
+                      ("K2", "bin_partial_pallas_cw")):
+        if not rec.calls.get(key):
+            continue
+        args = rec.calls[key][0]
+        if name == "K1":
+            grid, iy, ix, img_chw, elev = args
+            kernel = lambda: rec.real[key](grid, iy, ix, img_chw, elev)
+            plain = lambda: bin_rgbelev_plain(grid, iy, ix, img_chw, elev)
+            terms = fixed_terms(torch, list(img_chw), elev)
+            in_ch = 4
+        else:
+            grid, (iy, ix), data, n_ch, mode = args
+            data = data.to(torch.float32).contiguous()
+            kernel = lambda: rec.real[key](grid, (iy, ix), data, n_ch, mode)
+            plain = lambda: rp.bin_partial_cw_plain(grid, iy, ix, data, mode)
+            terms = fixed_terms(torch, [data[..., c] for c in range(n_ch - 1)],
+                                data[..., n_ch - 1])
+            in_ch = n_ch
+        got, want = kernel(), plain()
+        torch.cuda.synchronize()
+        err = check_equal(torch, f"{name} on {label}", got, want)
+        n_valid = int((iy >= 0).sum().item())
+        if int(got[0].double().sum().item()) != n_valid or n_valid == 0:
+            raise AssertionError(f"{name} on {label}: count total != "
+                                 f"{n_valid} valid samples")
+        k_ms, p_ms, _, _ = in_turns(torch, kernel, plain)
+        _, lib_ms, _, _ = in_turns(torch, kernel,
+                                   library_call(torch, grid, iy, ix, terms))
+        n_cells = grid.n_lat * grid.n_lon
+        n_bytes = bin_bytes(4, iy.numel(), n_valid, in_ch, n_cells, in_ch + 1)
+        filled = int((got[0] > 0).sum().item())
+        print(f"{tag} {name} on {label} ({n_valid} valid samples of "
+              f"{iy.shape[0]}x{iy.shape[1]}, {in_ch} channels -> {filled} of "
+              f"{grid.n_lat}x{grid.n_lon} cells): == plain (torch.equal); {k_ms:.3f} ms vs "
+              f"plain {p_ms:.3f} ms, one int64 index_add_ {lib_ms:.3f} ms, "
+              f"bound {bound_ms(n_bytes):.4f} ms; on {card}", flush=True)
+        res[name] = (err, k_ms, p_ms, n_bytes, lib_ms)
+    return res
+
+
+def magnetic_generic_phases(torch, np, card):
+    """Phases 19-21: the magnetic (MLat/MLT) grid, georeferencing through
+    the generic FITS projections, and the full-precision point functions,
+    at the 4256x2832 frame; returns the kernels-line rows of K1 and K2 on
+    the magnetic path."""
+    from auromat_tpu_torch.coordinates.transform import sm_to_latlon
+    from auromat_tpu_torch.coordinates.wcs import TanWcs, make_wcs
+    from auromat_tpu_torch.io import fits
+    from auromat_tpu_torch.mapping.astrometry import create_mapping
+    from auromat_tpu_torch.mapping.mapping import (check_guarantees,
+                                                   convert_mapping_to_sm)
+    from auromat_tpu_torch.ops import _kernels, georegrid
+    from auromat_tpu_torch.ops import georef as gr
+    from auromat_tpu_torch.ops import regrid_pallas as rp
+    from auromat_tpu_torch.resample import resample, resample_mlat_mlt
+
+    dev = torch.device("cuda")
+    k1, k2 = _kernels.GEOREGRID_BIN, _kernels.REGRID_BIN
+    all_kernels = (k1, _kernels.GEOREGRID_BIN_I8, k2, _kernels.REGRID_BIN_V1)
+    taps = ((georegrid, "bin_rgbelev_from_indices"),
+            (georegrid, "bin_mean_rgbelev"),
+            (rp, "bin_partial_pallas_cw"), (rp, "bin_mean_pallas_taint"))
+
+    # -- 19. the magnetic grid on the card -------------------------------------
+    golden = np.load(GOLDEN_MLATMLT)
+    header = fits.read_header(os.path.join(RES, "ISS030-E-102170_dc.wcs"))
+    pos = np.array(fits.get_shifted_spacecraft_position(header)[:3])
+    photo_time = fits.get_shifted_photo_time(header)
+    h, w = header["IMAGEH"], header["IMAGEW"]
+    frame = np.random.default_rng(SEED).integers(0, 256, (h, w, 3),
+                                                 dtype=np.uint8)
+    altitude, ppd = float(golden["altitude"]), float(golden["px_per_deg"])
+    m = create_mapping(header, frame, pos, photo_time, altitude=altitude,
+                       fast_center=False, identifier="ISS030-E-102170_dc",
+                       device=dev)
+    mag = lambda route, device: resample_mlat_mlt(
+        m, px_per_deg=ppd, contains_pole=False, bin_method=route,
+        device=device)
+    routes, launches = {}, {}
+    with recorded(*taps) as rec:
+        for route, kernel in (("auto", k1), ("pallas_taint", k2)):
+            for k in all_kernels:
+                k.launches = 0
+            routes[route] = mag(route, dev)
+            torch.cuda.synchronize()
+            launches[route] = kernel.launches
+            if kernel.launches < 1:
+                raise AssertionError(f"resample_mlat_mlt bin_method={route!r} "
+                                     f"never launched {kernel.source}")
+    for route, r in routes.items():
+        check_guarantees(r)
+        lons, elev = r.lons.filled(np.nan), r.elevation.filled(np.nan)
+        if lons.shape != golden["lons"].shape:
+            raise AssertionError(f"magnetic grid {lons.shape} != golden "
+                                 f"{golden['lons'].shape}")
+        both = ~np.isnan(lons) & ~np.isnan(golden["lons"])
+        lerr = float(np.abs(lons[both] - golden["lons"][both]).max())
+        both = ~np.isnan(elev) & ~np.isnan(golden["elevation"])
+        eerr = float(np.abs(elev[both] - golden["elevation"][both]).max())
+        mdiff = int((np.ma.getmaskarray(r.img) != golden["img_mask"])
+                    .any(axis=-1).sum())
+        if not (lerr < 1e-9 and eerr < 1e-4 and mdiff == 0):
+            raise AssertionError(f"magnetic grid {route!r} vs golden: lons "
+                                 f"{lerr}, elevation {eerr}, {mdiff} mask cells")
+        print(f"[19] resample_mlat_mlt {route!r} on the card -> "
+              f"{r.img.shape[0]}x{r.img.shape[1]}: {launches[route]} launch(es) "
+              f"of {'K1' if route == 'auto' else 'K2'}; vs golden: lons "
+              f"{lerr:.3g} deg, elevation {eerr:.3g}, {mdiff} mask cells",
+              flush=True)
+    cpu = mag("auto", "cpu")
+    gerr = gate_card_vs_cpu(np, "magnetic grid, card vs CPU", routes["auto"],
+                            cpu)
+    step, off1 = gate_routes(np, "magnetic grid, auto vs pallas_taint",
+                             routes["auto"], routes["pallas_taint"])
+    n_cells = int((~routes["auto"].center_mask).sum())
+    print(f"[19] 'auto' == resample_mlat_mlt on the CPU ('sorted', float64): "
+          f"grids {gerr:.3g} deg, masks equal, uint8 max step 0, {n_cells} "
+          f"cells; 'pallas_taint' agrees (masks equal, uint8 max step {step}, "
+          f"{off1:.2e} off by one)", flush=True)
+    on_sm = kernels_on_recorded(torch, rec, card, "[19]", "the SM mapping")
+
+    # wall time of the path, and its device part: the binning and the two
+    # SM -> geodetic conversions of the regular grid
+    bin_args = rec.calls["bin_mean_rgbelev"][0]
+    bin_ms = cuda_ms(torch, lambda: rec.real["bin_mean_rgbelev"](*bin_args), 5)
+    sm_r = resample(convert_mapping_to_sm(m), px_per_deg=ppd,
+                    contains_pole=False, device=dev)
+    fm = sm_r.frame_matrices
+    grids = [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in
+             (sm_r.lats.data, sm_r.lons.data, sm_r.latsCenter.data,
+              sm_r.lonsCenter.data)]
+
+    def back():
+        sm_to_latlon(grids[0], grids[1], fm.sm_to_geo, altitude=altitude)
+        sm_to_latlon(grids[2], grids[3], fm.sm_to_geo, altitude=altitude)
+
+    back()
+    back_ms = cuda_ms(torch, back, 5)
+    t0 = time.perf_counter()
+    convert_mapping_to_sm(m)
+    to_sm_ms = (time.perf_counter() - t0) * 1e3
+    mag_wall = wall_ms(torch, lambda: mag("auto", dev), N_WALL)
+    alone = (f"binning {bin_ms:.2f} ms and the grid's SM -> geodetic "
+             f"conversion {back_ms:.2f} ms when each is run again alone")
+    busy = device_busy_ms(torch, lambda: mag("auto", dev))
+    on_device = ("not measured (the profiler recorded no device event)"
+                 if busy is None else
+                 f"{busy[0]:.2f} ms in {busy[2]} kernels + {busy[1]:.2f} ms in "
+                 f"copies = {(busy[0] + busy[1]) / mag_wall:.4f} of the wall")
+    print(f"[19] resample_mlat_mlt 'auto' (4256x2832 -> {sm_r.img.shape[0]}x"
+          f"{sm_r.img.shape[1]}): {mag_wall:.1f} ms wall (of which "
+          f"convert_mapping_to_sm {to_sm_ms:.1f} ms on the host); on the "
+          f"device, by the profiler's trace of one call: {on_device}; {alone}; "
+          f"on {card}", flush=True)
+    del rec, bin_args, grids, routes
+
+    # -- 20. generic WCS on the card -------------------------------------------
+    def swapped(code):
+        h2 = {k: v for k, v in dict(header).items()
+              if k.upper() not in ("LONPOLE", "LATPOLE")}
+        h2["CTYPE1"], h2["CTYPE2"] = f"RA---{code}", f"DEC--{code}"
+        return h2
+
+    wcs = {c: make_wcs(swapped(c)) for c in ("ZEA", "HPX", "QSC", "PCO")}
+    par = {c: gr.GeorefParams.from_wcs(v, pos, photo_time, altitude)
+           for c, v in wcs.items()}
+    generic = lambda: gr.georeference_generic(wcs["ZEA"], par["ZEA"], True,
+                                              True, torch.float32, dev)
+    out = generic()
+    nan_frac = float(torch.isnan(out["lats"]).float().mean().item())
+    if out["lats"].shape != (h + 1, w + 1) or out["mlt_center"].shape != (h, w) \
+            or out["lats"].dtype != torch.float32 or not 0.2 < nan_frac < 0.8:
+        raise AssertionError(f"georeference_generic ZEA: shape "
+                             f"{tuple(out['lats'].shape)}, NaN {nan_frac}")
+    del out
+    generic_ms = cuda_ms(torch, generic, 5)
+    print(f"[20] generic_ms: georeference_generic (ZEA, 4256x2832, fast "
+          f"centres, MLat/MLT, float32, eager): {generic_ms:.2f} ms; on {card}",
+          flush=True)
+
+    pxg, pyg = np.meshgrid(np.arange(0, w, 8, dtype=np.float64),
+                           np.arange(0, h, 8, dtype=np.float64))
+    points = lambda c, dtype, device: [
+        a.double().cpu().numpy() for a in gr.georeference_points_generic(
+            wcs[c], par[c], pxg, pyg, dtype, True, device=device)]
+
+    def worst_deg(a, b, min_elevation=None):
+        """(largest |d lat| or |d lon|, its flat index, points compared)
+        where both are defined (and b's ray meets the shell at
+        ``min_elevation`` degrees or more)."""
+        both = ~np.isnan(a[0]) & ~np.isnan(b[0])
+        if min_elevation is not None:
+            both &= b[2] >= min_elevation
+        dlo = np.abs(a[1] - b[1])
+        d = np.where(both, np.maximum(np.abs(a[0] - b[0]),
+                                      np.minimum(dlo, 360.0 - dlo)), -1.0)
+        at = int(d.argmax())
+        return float(d.flat[at]), at, int(both.sum())
+
+    # float32 against float64 is gated over the rays that meet the shell at
+    # MIN_CLEAR degrees of elevation or more, at the tests' limit of 1e-2
+    # deg: a ray grazing the shell is ill-conditioned in float32 (the error
+    # grows as 1 / elevation); the worst point below that is printed, not
+    # gated. The CPU's float32 chain is read on the same points.
+    MIN_CLEAR = 0.25
+    generic_parity_deg, holes = 0.0, {}
+    for c in wcs:
+        g64 = points(c, torch.float64, dev)
+        c64 = points(c, torch.float64, "cpu")
+        if not np.array_equal(np.isnan(g64[0]), np.isnan(c64[0])):
+            raise AssertionError(f"generic {c}: float64 masks card != CPU")
+        derr = worst_deg(g64, c64)[0]
+        if not derr < 1e-9:
+            raise AssertionError(f"generic {c}: float64 card vs CPU {derr} deg")
+        holes[c] = float(np.isnan(g64[0]).mean())
+        print(f"[20] {c} at every 8th pixel ({pxg.size} points, "
+              f"{holes[c]:.3f} off the map or the Earth): float64 card vs "
+              f"CPU {derr:.3g} deg, masks equal", flush=True)
+        if c == "PCO":
+            continue
+        for where, device in (("card", dev), ("CPU", "cpu")):
+            f32 = points(c, torch.float32, device)
+            whole, at, n_all = worst_deg(f32, g64)
+            clear, _, n_clear = worst_deg(f32, g64, MIN_CLEAR)
+            half = worst_deg(f32, g64, 0.5)[0]
+            mism = float((np.isnan(f32[0]) != np.isnan(g64[0])).mean())
+            if not (clear < 1e-2 and mism <= 5e-4):
+                raise AssertionError(
+                    f"generic {c}: float32 on the {where} vs float64 on the "
+                    f"card {clear} deg at >= {MIN_CLEAR} deg elevation, mask "
+                    f"mismatch {mism}")
+            if where == "card":
+                generic_parity_deg = max(generic_parity_deg, clear)
+            print(f"[20] {c} float32 on the {where} vs float64 on the card: "
+                  f"{clear:.3e} deg over the {n_clear} rays at >= {MIN_CLEAR} "
+                  f"deg elevation (limit 1e-2; {n_all - n_clear} grazing rays "
+                  f"left out), {half:.3e} at >= 0.5 deg; mask mismatch "
+                  f"{mism:.2e}; worst of all {n_all} rays {whole:.3e} deg at "
+                  f"pixel ({int(pxg.flat[at])}, {int(pyg.flat[at])}), "
+                  f"elevation {g64[2].flat[at]:.3f} deg (printed, not gated)",
+                  flush=True)
+    print(f"[20] generic_parity_deg: {generic_parity_deg:.3e} (float32 vs "
+          f"float64 on the card, worst of ZEA, HPX, QSC over the rays at >= "
+          f"{MIN_CLEAR} deg elevation; limit 1e-2); on {card}", flush=True)
+
+    # PCO's inverse (45 bisection rounds + 2 Newton steps) on the full frame
+    fx, fy = torch.meshgrid(torch.arange(w, dtype=torch.float64, device=dev),
+                            torch.arange(h, dtype=torch.float64, device=dev),
+                            indexing="xy")
+    pco = lambda: gr.georeference_points_generic(wcs["PCO"], par["PCO"], fx, fy,
+                                                 torch.float64, device=dev)
+    la, lo = pco()
+    sub = [a[::8, ::8].cpu().numpy() for a in (la, lo)]
+    c64 = points("PCO", torch.float64, "cpu")[:2]
+    if not np.array_equal(np.isnan(sub[0]), np.isnan(c64[0])) or \
+            not worst_deg(sub, c64)[0] < 1e-9:
+        raise AssertionError("generic PCO: the full frame on the card != CPU")
+    del la, lo
+    pco_ms = cuda_ms(torch, pco, 3)
+    print(f"[20] pco_full_frame_ms: georeference_points_generic (PCO, "
+          f"4256x2832 points, float64, eager bisection): {pco_ms:.1f} ms, its "
+          f"every 8th pixel == the CPU within 1e-9 deg; on {card}", flush=True)
+    del fx, fy
+
+    # create_mapping on the ZEA header -> resample('mean')
+    zea = lambda device: create_mapping(
+        swapped("ZEA"), frame, pos, photo_time, altitude=altitude,
+        identifier="zea", device=device)
+    mz = zea(dev)
+    check_guarantees(mz)
+    with recorded(*taps) as rec:
+        for k in all_kernels:
+            k.launches = 0
+        rz = resample(mz, px_per_deg=ppd, device=dev)
+        torch.cuda.synchronize()
+        zea_launches = k1.launches
+    if zea_launches < 1:
+        raise AssertionError("resample of the ZEA mapping never launched K1")
+    check_guarantees(rz)
+    step, off1 = gate_routes(np, "ZEA, K1 vs plain binning", rz,
+                             resample(mz, px_per_deg=ppd, bin_method="sorted",
+                                      device=dev))
+    mz_cpu = zea("cpu")
+    merr = float(np.nanmax(np.abs(mz.lats.filled(np.nan)
+                                  - mz_cpu.lats.filled(np.nan))))
+    if not (np.array_equal(mz.center_mask, mz_cpu.center_mask) and merr < 1e-9):
+        raise AssertionError(f"ZEA mapping card vs CPU: {merr} deg")
+    gerr = gate_card_vs_cpu(np, "ZEA resample, card vs CPU", rz,
+                            resample(mz_cpu, px_per_deg=ppd, device="cpu"))
+    print(f"[20] create_mapping (RA---ZEA, float64) -> resample('mean', "
+          f"{ppd:g} px/deg) -> {rz.img.shape[0]}x{rz.img.shape[1]}: "
+          f"{zea_launches} launch(es) of K1, {int((~rz.center_mask).sum())} "
+          f"cells; mapping card vs CPU {merr:.3g} deg, masks equal; == plain "
+          f"binning on the card (uint8 max step {step}, {off1:.2e} off by one) "
+          f"and == the CPU (grids {gerr:.3g} deg, masks equal, uint8 max step "
+          f"0)", flush=True)
+    kernels_on_recorded(torch, rec, card, "[20]", "the ZEA mapping")
+    del rec, mz, mz_cpu, rz
+
+    # -- 21. full-precision points (native float64) ----------------------------
+    g = np.load(GOLDEN)
+    p64 = gr.GeorefParams.from_wcs(
+        TanWcs(header), fits.get_shifted_spacecraft_position(header)[:3],
+        fits.get_photo_time(header), altitude=float(g["altitude"]))
+    gx, gy = np.meshgrid(g["xs"] - 0.5, g["ys"] - 0.5)
+    lat, lon = gr.georeference_points_df64(p64, gx, gy, device=dev)
+    full = gr.georeference_points_df64_full(p64, gx, gy, device=dev)
+    ok = ~np.isnan(g["lat"])
+    derr = 0.0
+    for name, got in (("lat", lat), ("lon", lon), ("lat", full["lat"]),
+                      ("lon", full["lon"]), ("mlat", full["mlat"]),
+                      ("mlt", full["mlt"])):
+        if got.dtype != np.float64 or \
+                not np.array_equal(np.isnan(got), ~ok):
+            raise AssertionError(f"df64 {name}: NaN mask != golden")
+        d = np.abs(got[ok] - g[name][ok])
+        if name == "mlt":
+            d = np.minimum(d, 24.0 - d)
+        derr = max(derr, float(d.max()))
+    if not derr < 1e-6 or not np.array_equal(np.isnan(full["elevation"]), ~ok):
+        raise AssertionError(f"df64 points on the card: {derr} from golden")
+    px, py = torch.meshgrid(torch.arange(w, dtype=torch.float64, device=dev),
+                            torch.arange(h, dtype=torch.float64, device=dev),
+                            indexing="xy")
+    calls = {
+        "df64_georef_ms": lambda: gr.georeference_points_df64(
+            p64, px, py, device=dev),
+        "df64_full_ms": lambda: gr.georeference_points_df64_full(
+            p64, px, py, device=dev),
+        "df64_zen_full_ms": lambda: gr.georeference_points_df64_full(
+            p64, px, py, projection="ZEA", device=dev)}
+    print(f"[21] georeference_points_df64 and _df64_full on the card vs "
+          f"{os.path.basename(GOLDEN)}: max {derr:.3g} (lat, lon, MLat deg; "
+          f"MLT h), masks equal", flush=True)
+    for key, call in calls.items():
+        call()
+        ms = cuda_ms(torch, call, 5)
+        busy = device_busy_ms(torch, call)
+        on_device = ("device time not measured (the profiler recorded no "
+                     "device event)" if busy is None else
+                     f"{busy[0]:.2f} ms in {busy[2]} kernels + {busy[1]:.2f} "
+                     f"ms in copies on the device, by the profiler's trace of "
+                     f"one call")
+        print(f"[21] {key}: {ms:.2f} (the public function at 4256x2832 "
+              f"points, native float64, its host arrays included; CUDA "
+              f"events, median of 5); {on_device}; on {card}", flush=True)
+
+    k1_src = "auromat_tpu_torch/ops/csrc/georegrid_bin.cu"
+    k2_src = "auromat_tpu_torch/ops/csrc/regrid_bin.cu"
+    return [
+        kernel_row("georegrid_bin (K1) on the magnetic path, "
+                   "resample_mlat_mlt 'auto'", k1_src,
+                   "auromat_tpu/ops/georegrid.py:65", launches["auto"],
+                   *on_sm["K1"]),
+        kernel_row("regrid_bin (K2) on the magnetic path, resample_mlat_mlt "
+                   "'pallas_taint'", k2_src,
+                   "auromat_tpu/ops/regrid_pallas.py:292",
+                   launches["pallas_taint"], *on_sm["K2"]),
+    ]
+
+
 def main():
     import torch
 
@@ -1524,6 +1999,7 @@ def main():
     rows.append(mosaic_phases(torch, np, card))
     tile_path_phases(torch, np, grid, card)
     rows.append(asi_phases(torch, np, card))
+    rows += magnetic_generic_phases(torch, np, card)
 
     print(card)
     print(json.dumps({"kernels": rows}))

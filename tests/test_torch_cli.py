@@ -14,7 +14,9 @@ provider and exporters, against the JAX package's CLI on the CPU.
   stamp, ``iterParamBursts``'s uint8 refusal.
 * The per-frame path (``--grid geo --min-elevation 10 --format cdf``) on a
   scaled copy of the real frame against the JAX CLI's file: float64 on
-  both sides, so grids within 1e-9 deg, masks and uint8 image equal.
+  both sides, so grids within 1e-9 deg, masks and uint8 image equal; and
+  the same folder with ``--grid mag`` (the MLat/MLT grid) against the JAX
+  CLI, with the same tolerances.
 * ``--platform cuda`` without a CUDA device exits nonzero, and so does no
   ``--platform`` (cuda is the default; the tests pass ``--platform cpu``);
   the port's CLI, parallel and export modules import no jax.
@@ -232,14 +234,35 @@ def test_convert_per_frame_cdf_matches_jax_cli(small_folder, tmp_path):
                          (m.mLatMltCenter, jm.mLatMltCenter)):
         for a, b in zip(ours, theirs):
             assert_close_defined(a.data, b.data)
-    # skip-existing, and the unported branches refuse plainly
+    # skip-existing
     assert convert.main(CPU + args + ["--out", str(tmp_path / "port")]) == 0
-    with pytest.raises(NotImplementedError, match="resample_mlat_mlt"):
-        convert.main(CPU + [small_folder, "--grid", "mag", "--out",
-                      str(tmp_path / "mag")])
+    # the magnetic (MLat/MLT) grid against the JAX CLI: float64 on both
+    # sides, so grids within 1e-9 deg, masks and uint8 image equal
+    mag = [small_folder, "--grid", "mag", "--arcsecperpx", "900",
+           "--format", "cdf"]
+    assert jconvert.main(mag + ["--out", str(tmp_path / "jmag")]) == 0
+    assert convert.main(CPU + mag + ["--out", str(tmp_path / "mag")]) == 0
+    m, jm = (jread_cdf(str(tmp_path / side / "small.cdf"))
+             for side in ("mag", "jmag"))
+    for name in ("lats", "lons", "latsCenter", "lonsCenter"):
+        a, b = getattr(m, name).data, getattr(jm, name).data
+        assert a.shape == b.shape and np.abs(a - b).max() < 1e-9
+    assert np.array_equal(m.center_mask, jm.center_mask)
+    assert (~m.center_mask).sum() > 300
+    assert np.array_equal(m.img.filled(0), jm.img.filled(0))
+    ok = ~m.center_mask
+    assert np.abs(m.elevation.data - jm.elevation.data)[ok].max() < 1e-6
+    for ours, theirs in ((m.mLatMlt, jm.mLatMlt),
+                         (m.mLatMltCenter, jm.mLatMltCenter)):
+        for a, b in zip(ours, theirs):
+            assert_close_defined(a.data, b.data)
+    # the regular grid is the magnetic one: MLat is constant along a row
+    mlat = m.mLatMltCenter[0].data
+    assert np.nanmax(np.ptp(mlat, axis=1)) < 1e-6
+    # the unported source type refuses plainly
     (tmp_path / "iss").mkdir()
     (tmp_path / "iss" / "api.json").write_text("{}")
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(NotImplementedError, match="item 4"):
         convert.main(CPU + [str(tmp_path / "iss")])
     # a MIRACLE folder without images converts nothing (tests/test_torch_asi.py
     # converts real ones)

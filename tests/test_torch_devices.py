@@ -15,18 +15,25 @@ import pytest
 import torch
 
 from auromat_tpu_torch.cli import convert
-from auromat_tpu_torch.coordinates.wcs import TanWcs
+from auromat_tpu_torch.coordinates.wcs import (TanWcs, make_wcs,
+                                               pixel_directions, pixel_grid)
 from auromat_tpu_torch.entry import entry, frame_setup
 from auromat_tpu_torch.io import fits
 from auromat_tpu_torch.mapping.astrometry import create_mapping
 from auromat_tpu_torch.mapping.spacecraft import (SpacecraftMappingProvider,
                                                   get_mapping,
                                                   get_mapping_batch)
+from auromat_tpu_torch.mapping.mapping import (convert_sm_mapping_to_geo,
+                                               inflated_earth_intersection)
 from auromat_tpu_torch.ops.georef import (DynGeorefParams, GeorefParams,
-                                          georeference)
+                                          georeference, georeference_generic,
+                                          georeference_points,
+                                          georeference_points_df64,
+                                          georeference_points_df64_full,
+                                          georeference_points_generic)
 from auromat_tpu_torch.mapping import miracle, themis
 from auromat_tpu_torch.parallel import global_mesh, initialize, make_mesh
-from auromat_tpu_torch.resample import mosaic, resample
+from auromat_tpu_torch.resample import mosaic, resample, resample_mlat_mlt
 
 RES = os.path.join(os.path.dirname(__file__), "resources")
 WCS = os.path.join(RES, "ISS030-E-102170_dc.wcs")
@@ -68,6 +75,18 @@ def no_card(monkeypatch):
 def _mosaic_args(tmp):
     return convert.build_parser().parse_args(
         [str(tmp), "--mosaic", "1", "--out", str(tmp)])
+
+
+def _zea(header):
+    """``header`` as a ZEA solution (its TAN constants reinterpreted)."""
+    header = dict(header, CTYPE1="RA---ZEA", CTYPE2="DEC--ZEA")
+    header.pop("LONPOLE", None), header.pop("LATPOLE", None)
+    return header
+
+
+def _mag_args(tmp):
+    return convert.build_parser().parse_args(
+        [str(tmp), "--grid", "mag", "--out", str(tmp)])
 
 
 def _geo_args(tmp):
@@ -129,6 +148,29 @@ ENTRY_POINTS = {
         [RES, "--out", str(tmp)]),
     "convert.main themis": lambda s, tmp: convert.main(
         [str(tmp), "--grid", "geo", "--out", str(tmp)]),
+    "resample_mlat_mlt": lambda s, tmp: resample_mlat_mlt(
+        s.mapping, px_per_deg=3, contains_pole=False),
+    "convert_sm_mapping_to_geo": lambda s, tmp: convert_sm_mapping_to_geo(
+        s.mapping),
+    "convert.convert_mapping mag": lambda s, tmp: convert.convert_mapping(
+        s.mapping, _mag_args(tmp), str(tmp)),
+    "inflated_earth_intersection": lambda s, tmp: inflated_earth_intersection(
+        np.array([[0.0, 0.0, -1.0]]), s.pos),
+    "create_mapping ZEA": lambda s, tmp: create_mapping(
+        _zea(s.header), s.img, s.pos, s.t),
+    "georeference_generic": lambda s, tmp: georeference_generic(
+        make_wcs(_zea(s.header)), s.params),
+    "georeference_points": lambda s, tmp: georeference_points(
+        s.params, [1.0], [2.0]),
+    "georeference_points_generic": lambda s, tmp: georeference_points_generic(
+        make_wcs(_zea(s.header)), s.params, [1.0], [2.0]),
+    "georeference_points_df64": lambda s, tmp: georeference_points_df64(
+        s.params, [1.0], [2.0]),
+    "georeference_points_df64_full": lambda s, tmp:
+        georeference_points_df64_full(s.params, [1.0], [2.0],
+                                      projection="ZEA"),
+    "pixel_grid": lambda s, tmp: pixel_grid(4, 3),
+    "pixel_directions": lambda s, tmp: pixel_directions(TanWcs(s.header)),
     **{f"resample method={m}": (lambda s, tmp, m=m: resample(
         s.mapping, px_per_deg=3, method=m)) for m in RESAMPLE_METHODS},
 }

@@ -40,6 +40,11 @@ only the port is installed:
   within 1e-9 with equal NaN masks; a MIRACLE mapping built on the card,
   its resample routes ('nearest' takes the device route; 'mean' launches
   K1 and equals K1's plain twin) and ``mosaic``; ``reproject_batch``.
+* The magnetic grid and the generic projections on the card against the
+  CPU: ``resample_mlat_mlt`` (K1 and K2 routes; grids within 1e-9 deg,
+  masks equal, uint8 within one step on at most 0.1% of the cells) and
+  ``georeference_points_generic`` in float64 for ZEA, HPX, QSC and PCO
+  (1e-9 deg, NaN masks equal; float32 stays float32).
 """
 
 import os
@@ -693,3 +698,85 @@ def test_reproject_batch_cuda_matches_cpu(cuda):
     for g, w in zip(got, want):
         assert np.array_equal(np.isnan(g), np.isnan(w))
         assert np.nanmax(np.abs(g - w)) < 1e-9
+
+
+def _scaled_header(w=512, h=384, code=None):
+    """The real calibration scaled to (h, w) pixels; with ``code`` its
+    CTYPE swapped to that projection (LONPOLE/LATPOLE dropped)."""
+    header = dict(fits.read_header(os.path.join(RES, "ISS030-E-102170_dc.wcs")))
+    scale = header["IMAGEW"] / w
+    for k in ("CD1_1", "CD1_2", "CD2_1", "CD2_2"):
+        header[k] = header[k] * scale
+    header["CRPIX1"], header["CRPIX2"] = (header["CRPIX1"] / scale,
+                                          header["CRPIX2"] / scale)
+    header["IMAGEW"], header["IMAGEH"] = w, h
+    if code:
+        header = {k: v for k, v in header.items()
+                  if k.upper() not in ("LONPOLE", "LATPOLE")}
+        header["CTYPE1"], header["CTYPE2"] = f"RA---{code}", f"DEC--{code}"
+    return header
+
+
+@pytest.mark.gpu
+def test_resample_mlat_mlt_gpu_matches_cpu(cuda):
+    from auromat_tpu_torch.mapping.astrometry import create_mapping
+    from auromat_tpu_torch.mapping.mapping import check_guarantees
+    from auromat_tpu_torch.resample import resample_mlat_mlt
+
+    header = _scaled_header()
+    img = np.random.default_rng(3).integers(0, 256, (384, 512, 3), dtype=np.uint8)
+    m = create_mapping(header, img, fits.get_shifted_spacecraft_position(header)[:3],
+                       fits.get_shifted_photo_time(header), device=cuda)
+    want = resample_mlat_mlt(m, px_per_deg=5, contains_pole=False,
+                             device="cpu")
+    for method, kernel in (("auto", _kernels.GEOREGRID_BIN),
+                           ("pallas_taint", _kernels.REGRID_BIN)):
+        before = kernel.launches
+        got = resample_mlat_mlt(m, px_per_deg=5, contains_pole=False,
+                                bin_method=method, device=cuda)
+        assert kernel.launches == before + 1
+        check_guarantees(got)
+        for name in ("lats", "lons", "latsCenter", "lonsCenter"):
+            d = np.abs(getattr(got, name).data - getattr(want, name).data)
+            assert np.minimum(d, 360.0 - d).max() < 1e-9, name
+        mask = np.ma.getmaskarray(got.img)
+        assert np.array_equal(mask, np.ma.getmaskarray(want.img))
+        ok = ~mask
+        assert ok.mean() > 0.2
+        d = np.abs(got.img.data.astype(int) - want.img.data.astype(int))[ok]
+        assert d.max() <= 1 and (d == 1).mean() < 1e-3
+        e = np.abs(got.elevation.data - want.elevation.data)[ok[..., 0]]
+        assert e.max() < 1e-4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("code", ["ZEA", "HPX", "QSC", "PCO"])
+def test_georeference_points_generic_gpu_matches_cpu(cuda, code):
+    from auromat_tpu_torch.coordinates.wcs import make_wcs
+    from auromat_tpu_torch.ops.georef import georeference_points_generic
+
+    header = _scaled_header(code=code)
+    wcs = make_wcs(header)
+    params = GeorefParams.from_wcs(
+        wcs, fits.get_shifted_spacecraft_position(header)[:3],
+        fits.get_shifted_photo_time(header), altitude=110.0)
+    px, py = np.meshgrid(np.arange(0, 512, 2, dtype=np.float64),
+                         np.arange(0, 384, 2, dtype=np.float64))
+    got = georeference_points_generic(wcs, params, px, py, torch.float64, True,
+                                      device=cuda)
+    want = georeference_points_generic(wcs, params, px, py, torch.float64,
+                                       True, device="cpu")
+    for name, a, b in zip(("lat", "lon", "elevation"), got, want):
+        assert a.device.type == "cuda" and a.dtype == torch.float64
+        a, b = a.cpu().numpy(), b.numpy()
+        assert np.array_equal(np.isnan(a), np.isnan(b)), name
+        ok = ~np.isnan(b)
+        assert 0.2 < ok.mean() < 0.9
+        d = np.abs(a[ok] - b[ok])
+        if name == "lon":
+            d = np.minimum(d, 360.0 - d)
+        assert d.max() < 1e-9, (name, d.max())
+    la32, _ = georeference_points_generic(
+        wcs, params, px.astype(np.float32), py.astype(np.float32),
+        torch.float32, device=cuda)
+    assert la32.dtype == torch.float32
