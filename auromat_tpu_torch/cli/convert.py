@@ -17,10 +17,11 @@ into ONE file.
 
 Under ``torchrun`` every rank streams the sequence, bins its share of each
 burst's frames on its own GPU, and rank 0 writes the file. Source types:
-spacecraft folders (image + .wcs pairs), THEMIS L1/L2 CDF caches (offline:
-nothing is downloaded) and MIRACLE folders (images + cal.txt); a THEMIS or
-MIRACLE tick is a MappingCollection, and each member becomes one file. The
-ISS archive provider is not ported yet (ROADMAP.md section 1 item 4).
+spacecraft folders (image + .wcs pairs), ESA ISS archive caches (api.json,
+metadata.json, frames and .wcs files; missing frames are downloaded),
+THEMIS L1/L2 CDF caches (offline: nothing is downloaded) and MIRACLE
+folders (images + cal.txt); a THEMIS or MIRACLE tick is a
+MappingCollection, and each member becomes one file.
 """
 
 import argparse
@@ -66,9 +67,11 @@ def make_provider(source_type, folder, altitude, fast_center=True,
         return MIRACLEMappingProvider(folder, altitude=altitude,
                                       device=device)
     if source_type == "iss":
-        raise NotImplementedError(
-            "the iss mapping provider is not ported yet (ROADMAP.md section "
-            "1 item 4: it needs util/lensdistortion and raw decoding)")
+        from auromat_tpu_torch.mapping.iss import ISSMappingProvider
+
+        return ISSMappingProvider(folder, altitude=altitude, offline=False,
+                                  fastCenterCalculation=fast_center,
+                                  device=device)
     raise ValueError(source_type)
 
 

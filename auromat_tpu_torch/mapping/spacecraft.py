@@ -3,7 +3,9 @@
 Counterpart of ``auromat_tpu.mapping.spacecraft``: pairs image files with
 astrometric ``.wcs`` headers, resolves the camera position from the
 header cards (time-shift-corrected position preferred, then the plain
-position), and yields Mappings georeferenced on the provider's device.
+position, then the TLE propagation of
+:mod:`auromat_tpu_torch.coordinates.ephem`), and yields Mappings
+georeferenced on the provider's device.
 
 The reference's NuMap process-parallel sequence pipeline
 (spacecraft.py:308-377) becomes bursts:
@@ -12,10 +14,8 @@ The reference's NuMap process-parallel sequence pipeline
 DynGeorefParams and georeference its frames in float32 on the device;
 :meth:`SpacecraftMappingProvider.iterParamBursts` feeds calibration and
 imagery straight to :func:`auromat_tpu_torch.parallel.mosaic_sequence`.
-The per-frame ``get``/``getSequence`` path keeps float64.
-
-Not ported yet: the TLE fallback of the camera position (it needs
-``coordinates.ephem``). Reading an image needs PIL.
+The per-frame ``get``/``getSequence`` path keeps float64. Reading an image
+needs PIL.
 """
 
 import os
@@ -42,7 +42,8 @@ def resolve_camera_position(header, tle_path=None, spacetrack=None):
     """Camera GCRS position (km) and photo time from a .wcs header.
 
     Order (reference spacecraft.py:428-485): shifted position cards ->
-    plain position cards -> TLE propagation at DATE-OBS (not ported yet).
+    plain position cards -> TLE propagation at DATE-OBS (SGP4 on the host,
+    :class:`auromat_tpu_torch.coordinates.ephem.EphemerisCalculator`).
 
     :returns: (position (3,), photo_time, shift_seconds)
     """
@@ -56,9 +57,10 @@ def resolve_camera_position(header, tle_path=None, spacetrack=None):
         return np.asarray(pos, dtype=np.float64), photo_time, 0.0
     norad_id = fits.get_norad_id(header)
     if tle_path is not None and norad_id is not None and photo_time is not None:
-        raise NotImplementedError(
-            "the camera position from a TLE needs coordinates.ephem, which "
-            "is not ported yet")
+        from auromat_tpu_torch.coordinates.ephem import EphemerisCalculator
+
+        calc = EphemerisCalculator(tle_path)
+        return calc(photo_time), photo_time, 0.0
     raise ValueError(
         "no spacecraft position in header and no TLE fallback available"
     )
@@ -124,7 +126,7 @@ class SpacecraftMappingProvider(BaseMappingProvider):
             header = fits.read_header(wcs_path)
             try:
                 _, photo_time, _ = resolve_camera_position(header, self.tle_path)
-            except (ValueError, NotImplementedError):
+            except ValueError:
                 photo_time = fits.get_photo_time(header)
             entries.append(
                 {"id": base, "image": os.path.join(self.image_dir, f),

@@ -7,8 +7,9 @@ ISS030-E-102170 (4256x2832) and mean-regrid it onto the 539x524 fixed grid
 ``create_mapping`` -> ``resample('mean')`` of the same frame, the sequence
 mosaic, the all-sky-imager path (THEMIS and MIRACLE providers,
 ``mosaic``, the interpolation routes, ``convert``), the magnetic grid
-(``resample_mlat_mlt``) and georeferencing through the generic FITS
-projections, and checks them:
+(``resample_mlat_mlt``), georeferencing through the generic FITS
+projections and the ESA ISS archive path (lens correction on the card,
+products read back, TLE camera positions), and checks them:
 
 1. the card (``nvidia-smi`` name and power limit);
 2. starts the build of every kernel source from this checkout, one nvcc
@@ -126,7 +127,30 @@ projections, and checks them:
     times of those public functions at the 12 MP frame, host arrays
     included, as ``df64_georef_ms``, ``df64_full_ms`` and
     ``df64_zen_full_ms`` (the ZEA radial law), each beside its kernel and
-    copy time from a profiler trace.
+    copy time from a profiler trace;
+22. the lens distortion correction of the ISS path (``util.
+    lensdistortion``, eager torch) on the full 4256x2832x3 uint8 seeded
+    frame for ptlens, poly3 and poly5: the card against the same code on
+    the CPU (at most one step), device time (CUDA events, median of 20),
+    wall time with the host copies (median of 3) and its bound;
+23. the ESA ISS archive path: an offline cache in a temp dir (the real
+    .wcs, api.json with the archive's poly3 (-0.019) model and the flip,
+    metadata.json, the seeded frame under the RAW file's name, read by a
+    stub decoder: no rawpy or PIL here) through
+    ``ISSMappingProvider(device='cuda').get`` (flip, correction on the
+    card, crop, ``create_mapping``) and ``resample(px_per_deg=25)``: K1
+    launched and bit-equal to its plain version on the recorded arguments,
+    grids within 1e-9 deg of the same route on the CPU, uint8 equal; CDF
+    and NETCDF3 (and NETCDF4 where h5py is present) exports read back
+    through ``CDFMappingProvider``/``NetCDFMappingProvider`` and resampled
+    on the card equal the first composite; wall times of the stages and
+    the device share from a profiler trace of one get + resample;
+24. TLE camera positions: the header without its POS* cards and the ISS
+    TLE fitted to it (tests/test_ephem.py) through
+    ``resolve_camera_position`` (SGP4 on the host) and ``create_mapping``
+    on the card, against the mapping from the header's own position;
+25. ``profiling.benchmark`` of K1 at the main path's shapes beside [5]'s
+    CUDA-event median.
 
 Every kernel row gets, beside its time and its plain version's, its bound
 (``bound_ms``: the bytes the function must move — every index, the data
@@ -1818,6 +1842,342 @@ def magnetic_generic_phases(torch, np, card):
     ]
 
 
+LENS_MODELS = (("ptlens", (0.01, -0.02, 0.005)), ("poly3", (-0.019,)),
+               ("poly5", (0.1, 0.01)))
+ISS_KEY = "ISS030-E-102170"
+ISS_DATE = "2012-01-25T09:27:08.060000"  # DATE-OBS of the frame's header
+# tests/test_ephem.py::iss_tle_from_header: a TLE fitted to the header's
+# two camera positions
+ISS_TLE = ("1 25544U 98067A   12025.39384329  .00000000  00000-0  00000-0 0    04\n"
+           "2 25544  51.6283 123.3888 0093999 252.4012 171.2148 15.81821010    06\n")
+
+
+def lens_phase(torch, np, card):
+    """Phase 22: the lens distortion correction of the full frame on the
+    card against the same torch code on the CPU, and its times."""
+    from auromat_tpu_torch.util.lensdistortion import correct_lens_distortion
+
+    dev = torch.device("cuda")
+    h, w = 2832, 4256
+    frame = np.random.default_rng(SEED).integers(0, 256, (h, w, 3),
+                                                 dtype=np.uint8)
+    on_card = torch.from_numpy(frame).to(dev)
+    n_bytes = 2 * frame.nbytes  # the frame read once, the result written once
+    for model, params in LENS_MODELS:
+        got = correct_lens_distortion(frame, model, params, device=dev)
+        want = correct_lens_distortion(frame, model, params, device="cpu")
+        d = np.abs(got.astype(np.int16) - want.astype(np.int16))
+        step, n_diff = int(d.max()), int((d > 0).sum())
+        if got.dtype != np.uint8 or got.shape != frame.shape or step > 1:
+            raise AssertionError(f"lens correction {model}: card vs CPU max "
+                                 f"step {step} ({n_diff} values differ)")
+        call = lambda: correct_lens_distortion(on_card, model, params,
+                                               device=dev)
+        call()
+        dev_ms = cuda_ms(torch, call, N_TIMED)
+        host_ms = wall_ms(torch, lambda: correct_lens_distortion(
+            frame, model, params, device=dev), N_WALL)
+        print(f"[22] correct_lens_distortion {model} {params} on the card "
+              f"({w}x{h}x3 uint8, {frame.nbytes / 1e6:.1f} MB; float32 working "
+              f"copy {4 * frame.nbytes / 1e6:.1f} MB) vs the same code on the "
+              f"CPU: max step {step}, {n_diff} of {frame.size} values differ; "
+              f"device {dev_ms:.3f} ms (CUDA events, median of {N_TIMED}), "
+              f"wall with the host copies {host_ms:.1f} ms (median of "
+              f"{N_WALL}); {n_bytes} bytes in and out, bound "
+              f"{bound_ms(n_bytes):.4f} ms at 3.35 TB/s; on {card}",
+              flush=True)
+    del on_card
+
+
+class StubRaw:
+    """What ``rawpy.imread`` returns here: the card's machine has no RAW
+    decoder, so the 'RAW' file holds a seeded frame saved with numpy and
+    ``postprocess`` loads it. Only the decoder is replaced; the provider's
+    code around it (white balance, flip, distortion, crop, georeference)
+    runs as it is."""
+
+    color_desc, num_colors = b"RGBG", 3
+
+    def __init__(self, path):
+        self.path = path
+
+    def postprocess(self, **kw):
+        import numpy as np
+
+        return np.load(self.path)
+
+
+def stub_rawpy():
+    """A ``rawpy`` module with :class:`StubRaw` as its decoder."""
+    import importlib.machinery
+    import types
+
+    mod = types.ModuleType("rawpy")
+    mod.__spec__ = importlib.machinery.ModuleSpec("rawpy", None)
+    mod.imread = StubRaw
+    mod.enhance = types.ModuleType("rawpy.enhance")
+    mod.enhance.repair_bad_pixels = lambda raw, bad: None
+    return mod
+
+
+def iss_cache(np, folder):
+    """An offline ESA ISS archive cache: the real .wcs, api.json with the
+    archive's poly3 (-0.019) model and the 180-degree flip, metadata.json,
+    and the seeded frame under the RAW name; returns the frame."""
+    import shutil
+
+    os.makedirs(folder, exist_ok=True)
+    shutil.copy(os.path.join(RES, "ISS030-E-102170_dc.wcs"),
+                os.path.join(folder, f"{ISS_KEY}.wcs"))
+    api = {"id": 77, "date_start": ISS_DATE, "date_end": ISS_DATE,
+           "image_extension": ".jpg", "raw_extension": ".NEF",
+           "raw_white_balance": [2.0, 1.0, 1.5, 1.0],
+           "raw_bad_pixels_uri": "unused", "metadata_uri": "unused",
+           "raw_is_upside_down": True,
+           "distortion_correction": {"model": "poly3", "params": [-0.019]},
+           "images": {ISS_KEY: {"date": ISS_DATE, "raw_uri": "unused",
+                                "image_uri": "unused", "wcs_uri": "unused"}}}
+    with open(os.path.join(folder, "api.json"), "w") as f:
+        json.dump(api, f)
+    with open(os.path.join(folder, "metadata.json"), "w") as f:
+        json.dump({"sequence_metadata": {"Project": "THOR"},
+                   "image_metadata": {ISS_KEY: {"exposure": 1.0}}}, f)
+    frame = np.random.default_rng(SEED + 7).integers(0, 256, (2832, 4256, 3),
+                                                     dtype=np.uint8)
+    with open(os.path.join(folder, f"{ISS_KEY}.NEF"), "wb") as f:
+        np.save(f, frame)
+    return frame
+
+
+def iss_phases(torch, np, card, k1_ms_main):
+    """Phases 22-25: the lens correction, the ISS archive path (provider ->
+    correction on the card -> create_mapping -> resample on K1 -> CDF and
+    netCDF -> read back -> resample), TLE camera positions and
+    ``profiling.benchmark``; returns the kernels-line row of K1 on the ISS
+    path."""
+    import importlib.util
+    import tempfile
+
+    from auromat_tpu_torch.entry import frame_setup
+    from auromat_tpu_torch.export import cdf as export_cdf
+    from auromat_tpu_torch.export import netcdf as export_nc
+    from auromat_tpu_torch.io import fits
+    from auromat_tpu_torch.mapping import iss
+    from auromat_tpu_torch.mapping.astrometry import create_mapping
+    from auromat_tpu_torch.mapping.cdf import CDFMappingProvider
+    from auromat_tpu_torch.mapping.mapping import check_guarantees
+    from auromat_tpu_torch.mapping.netcdf import NetCDFMappingProvider
+    from auromat_tpu_torch.mapping.spacecraft import resolve_camera_position
+    from auromat_tpu_torch.ops import _kernels, georegrid
+    from auromat_tpu_torch.ops.georegrid import (bin_rgbelev_from_indices,
+                                                 georegrid_inputs)
+    from auromat_tpu_torch.profiling import benchmark
+    from auromat_tpu_torch.resample import resample
+
+    dev = torch.device("cuda")
+    k1 = _kernels.GEOREGRID_BIN
+    lens_phase(torch, np, card)
+
+    # -- 23. the ISS archive path on the card ------------------------------
+    tmp = tempfile.TemporaryDirectory()
+    folder = os.path.join(tmp.name, "iss")
+    frame = iss_cache(np, folder)
+    real = {k: sys.modules.get(k) for k in ("rawpy", "rawpy.enhance")}
+    sys.modules["rawpy"] = mod = stub_rawpy()
+    sys.modules["rawpy.enhance"] = mod.enhance
+    try:
+        date = datetime.datetime.strptime(ISS_DATE, iss.ISO_DATE_FORMAT)
+        provider = lambda device: iss.ISSMappingProvider(
+            folder, offline=True, raw_bps=8, device=device)
+        prov = provider(dev)
+        if not prov.useRaw:
+            raise AssertionError("the ISS provider did not take the RAW route")
+        m = prov.get(date)
+        check_guarantees(m)
+        with recorded((georegrid, "bin_rgbelev_from_indices")) as rec:
+            k1.launches = 0
+            r = resample(m, px_per_deg=25, device=dev)
+            torch.cuda.synchronize()
+            launches = k1.launches
+        if launches < 1:
+            raise AssertionError("resample of the ISS mapping never launched K1")
+        check_guarantees(r)
+        on_iss = kernels_on_recorded(torch, rec, card, "[23]",
+                                     "the ISS mapping")
+        m_cpu = provider("cpu").get(date)
+        merr = max(float(np.nanmax(np.abs(getattr(m, k).filled(np.nan)
+                                          - getattr(m_cpu, k).filled(np.nan))))
+                   for k in ("lats", "lons", "latsCenter", "lonsCenter"))
+        img_step = int(np.abs(m.img.data.astype(np.int16)
+                              - m_cpu.img.data.astype(np.int16)).max())
+        if not (merr < 1e-9 and img_step <= 1 and
+                np.array_equal(m.center_mask, m_cpu.center_mask)):
+            raise AssertionError(f"ISS mapping card vs CPU: grids {merr} deg, "
+                                 f"corrected image step {img_step}")
+        r_cpu = resample(m_cpu, px_per_deg=25, device="cpu")
+        gerr = gate_card_vs_cpu(np, "ISS resample, card vs CPU", r, r_cpu)
+        n_cells = int((~r.center_mask).sum())
+        print(f"[23] ISSMappingProvider(offline, RAW route; the decoder "
+              f"replaced by a seeded 4256x2832 frame: no rawpy or PIL on this "
+              f"machine).get -> flip, poly3 (-0.019) on the card, crop, "
+              f"create_mapping (float64) -> resample(px_per_deg=25) -> "
+              f"{r.img.shape[0]}x{r.img.shape[1]}: {launches} launch(es) of "
+              f"K1, {n_cells} cells; mapping card vs CPU {merr:.3g} deg "
+              f"(corrected image max step {img_step}), composite card vs CPU "
+              f"grids {gerr:.3g} deg, masks equal, uint8 max step 0",
+              flush=True)
+
+        # export, read back through the providers, resample on the card;
+        # the files hold the unresampled frame (0.5-1.1 GB each), so each
+        # is written and read once, uncompressed, without MLat/MLT
+        writers = [("cdf", ".cdf", CDFMappingProvider,
+                    lambda p: export_cdf.write(p, m, compress=False,
+                                               includeMagCoords=False)),
+                   ("NETCDF3", ".nc", NetCDFMappingProvider,
+                    lambda p: export_nc.write(p, m, format="NETCDF3",
+                                              includeMagCoords=False))]
+        has_h5py = importlib.util.find_spec("h5py") is not None
+        if has_h5py:
+            writers.append(("NETCDF4", ".nc", NetCDFMappingProvider,
+                            lambda p: export_nc.write(
+                                p, m, format="NETCDF4", compress=False,
+                                includeMagCoords=False)))
+        io_ms = {}
+        for fmt, ext, provider_cls, write in writers:
+            out_dir = os.path.join(tmp.name, fmt)
+            os.makedirs(out_dir)
+            path = os.path.join(out_dir, ISS_KEY + ext)
+            t0 = time.perf_counter()
+            write(path)
+            t1 = time.perf_counter()
+            back = provider_cls(out_dir).get(m.photoTime)
+            t2 = time.perf_counter()
+            size = os.path.getsize(path)
+            os.remove(path)
+            k1.launches = 0
+            rb = resample(back, px_per_deg=25, device=dev)
+            torch.cuda.synchronize()
+            same = (np.array_equal(rb.img.filled(0), r.img.filled(0))
+                    and np.array_equal(rb.center_mask, r.center_mask)
+                    and all(np.array_equal(getattr(rb, k).data,
+                                           getattr(r, k).data, equal_nan=True)
+                            for k in ("lats", "lons")))
+            if not same or k1.launches < 1 or back.identifier != ISS_KEY:
+                raise AssertionError(f"{fmt} read-back composite differs from "
+                                     f"the first ({k1.launches} K1 launches)")
+            io_ms[fmt] = ((t1 - t0) * 1e3, (t2 - t1) * 1e3, size)
+        print(f"[23] export -> {', '.join(io_ms)} (h5py "
+              f"{'present' if has_h5py else 'absent: no NETCDF4'}), read back "
+              f"through CDFMappingProvider/NetCDFMappingProvider.get, resample "
+              f"on the card: == the first composite (uint8, masks, grids), K1 "
+              f"launched each time", flush=True)
+
+        # times of the path's stages
+        header = fits.read_header(os.path.join(folder, f"{ISS_KEY}.wcs"))
+        pos, photo_time, _ = resolve_camera_position(header)
+        corrected = m.img.data
+        stages = {
+            "provider get": lambda: prov.get(date),
+            "correction (_postprocess_common)": lambda: prov._postprocess_common(
+                frame),
+            "create_mapping": lambda: create_mapping(
+                header, corrected, pos, photo_time, fast_center=False,
+                device=dev),
+            "resample": lambda: resample(m, px_per_deg=25, device=dev),
+        }
+        times = {k: wall_ms(torch, f, N_WALL) for k, f in stages.items()}
+        path_ms = times["provider get"] + times["resample"]
+        busy = device_busy_ms(torch, lambda: resample(prov.get(date),
+                                                      px_per_deg=25, device=dev))
+        on_device = ("not measured (the profiler recorded no device event)"
+                     if busy is None else
+                     f"{busy[0]:.2f} ms in {busy[2]} kernels + {busy[1]:.2f} ms "
+                     f"in copies = {(busy[0] + busy[1]) / path_ms:.4f} of the "
+                     f"wall")
+        print(f"[23] ISS path wall ms (median of {N_WALL}): "
+              + ", ".join(f"{k} {v:.1f}" for k, v in times.items())
+              + f"; get + resample {path_ms:.1f}; on the device, by the "
+              f"profiler's trace of one get + resample: {on_device}; export / "
+              f"read-back ms (one run each): "
+              + ", ".join(f"{k} {w_:.1f} / {r_:.1f} ({s / 1e6:.0f} MB)"
+                          for k, (w_, r_, s) in io_ms.items())
+              + f"; on {card}", flush=True)
+    finally:
+        for k, v in real.items():
+            if v is None:
+                sys.modules.pop(k, None)
+            else:
+                sys.modules[k] = v
+        tmp.cleanup()
+    del m, m_cpu, r, r_cpu, rec
+
+    # -- 24. TLE camera positions on the card -------------------------------
+    with tempfile.TemporaryDirectory() as d:
+        tle_path = os.path.join(d, "iss.tle")
+        with open(tle_path, "w") as f:
+            f.write(ISS_TLE)
+        full = fits.read_header(os.path.join(RES, "ISS030-E-102170_dc.wcs"))
+        header = fits.FitsHeader({k: v for k, v in full.items()
+                                  if not k.startswith("POS")})
+        pos, t, _ = resolve_camera_position(header, tle_path)
+    hpos = np.array(fits.get_spacecraft_position(full))
+    dist = float(np.linalg.norm(pos - hpos))
+    m_tle = create_mapping(header, frame, pos, t, device=dev)
+    m_hdr = create_mapping(header, frame, hpos, t, device=dev)
+    both = ~m_tle.center_mask & ~m_hdr.center_mask
+
+    def max_diff(sel):
+        dlat = np.abs(m_tle.latsCenter.data - m_hdr.latsCenter.data)[sel]
+        dlon = np.abs(m_tle.lonsCenter.data - m_hdr.lonsCenter.data)[sel]
+        return float(dlat.max()), float(np.minimum(dlon, 360.0 - dlon).max())
+
+    # grazing rays move far for a few km of camera position: gate the
+    # pixels at 10 deg of elevation or more in both mappings
+    high = both & (m_tle.elevation.filled(0) >= 10) & \
+        (m_hdr.elevation.filled(0) >= 10)
+    (dlat, dlon), (alat, alon) = max_diff(high), max_diff(both)
+    if not (dist < 15.0 and high.mean() > 0.3 and max(dlat, dlon) < 0.5):
+        raise AssertionError(f"TLE mapping: position {dist} km from the "
+                             f"header's, lat/lon {dlat}/{dlon} deg")
+    print(f"[24] the header without POS* cards + the fitted ISS TLE -> SGP4 "
+          f"position {dist:.3f} km from the header's -> create_mapping on the "
+          f"card (4256x2832, float64): lat/lon vs the header-position "
+          f"mapping max {dlat:.4f} / {dlon:.4f} deg over the {int(high.sum())} "
+          f"pixels at >= 10 deg elevation ({alat:.4f} / {alon:.4f} over all "
+          f"{int(both.sum())})", flush=True)
+    del m_tle, m_hdr
+
+    # -- 25. profiling.benchmark of K1 -----------------------------------------
+    grid, dyn, params = frame_setup(dev)
+    h, w = params.height, params.width
+    iy, ix, out = georegrid_inputs(grid, dyn, h, w)
+    img = torch.from_numpy(np.random.default_rng(SEED).integers(
+        0, 256, (3, h, w), dtype=np.uint8)).to(dev).float()
+    args = (grid, iy, ix, img, out["elevation"])
+    # in turns with this script's own CUDA-event timer on the same call, so
+    # that the card's state at this point of the run is the same for both
+    runs = {"benchmark": [], "cuda_ms": []}
+    for how in ("benchmark", "cuda_ms", "cuda_ms", "benchmark"):
+        runs[how].append(
+            benchmark(bin_rgbelev_from_indices, *args, iters=N_TIMED)[0] * 1e3
+            if how == "benchmark" else
+            cuda_ms(torch, lambda: bin_rgbelev_from_indices(*args), N_TIMED))
+    bench_ms, here_ms = (statistics.median(runs[k]) for k in runs)
+    if not 0 < bench_ms < 100:
+        raise AssertionError(f"profiling.benchmark of K1: {bench_ms} ms")
+    print(f"[25] profiling.benchmark(bin_rgbelev_from_indices) at the main "
+          f"path's shapes: {bench_ms:.3f} ms (CUDA events, median of "
+          f"{N_TIMED}; runs {[round(t, 3) for t in runs['benchmark']]}), "
+          f"in turns with cuda_ms of the same call {here_ms:.3f} ms (runs "
+          f"{[round(t, 3) for t in runs['cuda_ms']]}); [5]'s K1 wrapper "
+          f"{k1_ms_main:.3f} ms; on {card}", flush=True)
+    return kernel_row("georegrid_bin (K1) on the ISS path, ISSMappingProvider "
+                      "-> resample('mean')",
+                      "auromat_tpu_torch/ops/csrc/georegrid_bin.cu",
+                      "auromat_tpu/ops/georegrid.py:65", launches,
+                      *on_iss["K1"])
+
+
 def main():
     import torch
 
@@ -2000,6 +2360,7 @@ def main():
     tile_path_phases(torch, np, grid, card)
     rows.append(asi_phases(torch, np, card))
     rows += magnetic_generic_phases(torch, np, card)
+    rows.append(iss_phases(torch, np, card, k1_ms))
 
     print(card)
     print(json.dumps({"kernels": rows}))

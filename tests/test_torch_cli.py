@@ -16,7 +16,10 @@ provider and exporters, against the JAX package's CLI on the CPU.
   scaled copy of the real frame against the JAX CLI's file: float64 on
   both sides, so grids within 1e-9 deg, masks and uint8 image equal; and
   the same folder with ``--grid mag`` (the MLat/MLT grid) against the JAX
-  CLI, with the same tolerances.
+  CLI, with the same tolerances; and the frame as an ESA ISS archive cache
+  (``--grid geo``, CDF and netCDF, the netCDF read back by the port's
+  reader) against the JAX CLI, with the same tolerances.
+* ``cli.download``'s argument parsing, against the JAX CLI's parser.
 * ``--platform cuda`` without a CUDA device exits nonzero, and so does no
   ``--platform`` (cuda is the default; the tests pass ``--platform cpu``);
   the port's CLI, parallel and export modules import no jax.
@@ -36,6 +39,7 @@ from auromat_tpu.cli import convert as jconvert
 from auromat_tpu.io import fits as jfits
 from auromat_tpu.mapping.cdf import read_mapping as jread_cdf
 from auromat_tpu.mapping.netcdf import read_mapping as jread_nc
+from auromat_tpu_torch.mapping.netcdf import read_mapping as read_nc
 from auromat_tpu_torch import parallel
 from auromat_tpu_torch.cli import convert
 from auromat_tpu_torch.mapping import spacecraft as sc
@@ -193,6 +197,30 @@ def test_convert_mosaic_premask_and_time_stamp(folder2, tmp_path,
                                   "cpu") is None
 
 
+ISS_KEY = "ISS030-E-102170"
+
+
+def make_iss_cache(small_folder, folder):
+    """An offline ESA ISS archive cache around the small frame."""
+    import json
+
+    os.makedirs(folder)
+    shutil.copy(os.path.join(small_folder, "small.png"),
+                os.path.join(folder, f"{ISS_KEY}.png"))
+    shutil.copy(os.path.join(small_folder, "small.wcs"),
+                os.path.join(folder, f"{ISS_KEY}.wcs"))
+    date = "2012-01-25T09:27:08.060000"
+    api = {"id": 77, "date_start": date, "date_end": date,
+           "image_extension": ".png", "metadata_uri": "unused",
+           "images": {ISS_KEY: {"date": date, "image_uri": "unused",
+                                "wcs_uri": "unused"}}}
+    with open(os.path.join(folder, "api.json"), "w") as f:
+        json.dump(api, f)
+    with open(os.path.join(folder, "metadata.json"), "w") as f:
+        json.dump({"sequence_metadata": {"Project": "THOR"}}, f)
+    return str(folder)
+
+
 @pytest.fixture(scope="module")
 def small_folder(tmp_path_factory):
     """The real frame's calibration scaled to 512x384 pixels, with a seeded
@@ -259,11 +287,30 @@ def test_convert_per_frame_cdf_matches_jax_cli(small_folder, tmp_path):
     # the regular grid is the magnetic one: MLat is constant along a row
     mlat = m.mLatMltCenter[0].data
     assert np.nanmax(np.ptp(mlat, axis=1)) < 1e-6
-    # the unported source type refuses plainly
-    (tmp_path / "iss").mkdir()
-    (tmp_path / "iss" / "api.json").write_text("{}")
-    with pytest.raises(NotImplementedError, match="item 4"):
-        convert.main(CPU + [str(tmp_path / "iss")])
+    # an ESA ISS archive cache (api.json, metadata.json, the frame and its
+    # .wcs) converts through the ISS provider: --grid geo to CDF and to
+    # netCDF, both equal to the JAX CLI's (float64, grids 1e-9 deg, masks
+    # and uint8 image equal, the archive's metadata carried over)
+    iss_folder = make_iss_cache(small_folder, tmp_path / "iss")
+    assert convert.detect_source_type(iss_folder) == "iss"
+    for fmt, read, jread in (("cdf", jread_cdf, jread_cdf),
+                             ("netcdf", read_nc, jread_nc)):
+        iss_args = [iss_folder, "--grid", "geo", "--arcsecperpx", "900",
+                    "--format", fmt]
+        assert jconvert.main(iss_args + ["--out", str(tmp_path / "jiss")]) == 0
+        assert convert.main(CPU + iss_args + ["--out",
+                                              str(tmp_path / "piss")]) == 0
+        ext = ".cdf" if fmt == "cdf" else ".nc"
+        m = read(str(tmp_path / "piss" / f"{ISS_KEY}{ext}"))
+        jm = jread(str(tmp_path / "jiss" / f"{ISS_KEY}{ext}"))
+        m.checkPlateCarree()
+        for name in ("lats", "lons", "latsCenter", "lonsCenter"):
+            a, b = getattr(m, name).data, getattr(jm, name).data
+            assert a.shape == b.shape and np.abs(a - b).max() < 1e-9
+        assert np.array_equal(m.center_mask, jm.center_mask)
+        assert (~m.center_mask).sum() > 300
+        assert np.array_equal(m.img.filled(0), jm.img.filled(0))
+        assert m.metadata["Project"] == jm.metadata["Project"] == "THOR"
     # a MIRACLE folder without images converts nothing (tests/test_torch_asi.py
     # converts real ones)
     (tmp_path / "asi").mkdir()
@@ -312,8 +359,75 @@ def test_port_modules_import_no_jax():
         "import auromat_tpu_torch.parallel, auromat_tpu_torch.cli.convert\n"
         "import auromat_tpu_torch.export.cdf, auromat_tpu_torch.export.netcdf\n"
         "import auromat_tpu_torch.mapping.spacecraft, auromat_tpu_torch.entry\n"
+        "import auromat_tpu_torch.mapping.iss, auromat_tpu_torch.mapping.cdf\n"
+        "import auromat_tpu_torch.mapping.netcdf, auromat_tpu_torch.profiling\n"
+        "import auromat_tpu_torch.coordinates.ephem\n"
+        "import auromat_tpu_torch.coordinates.spacetrack\n"
+        "import auromat_tpu_torch.util.lensdistortion\n"
+        "import auromat_tpu_torch.util.exiftool, auromat_tpu_torch.cli.download\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'auromat_tpu')]\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"))
     assert res.returncode == 0, res.stdout + res.stderr
+
+
+@pytest.mark.parametrize("argv", [
+    ["esa-iss", "F", "--id", "77"],
+    ["esa-iss", "F", "--id", "77", "--no-raw", "--start", "2012-01-25",
+     "--end", "2012-01-26T10:00:00"],
+    ["themis", "F", "--start", "2012-02-04", "--end", "2012-02-04 08:00:00",
+     "--stations", "fsmi", "gill"],
+])
+def test_download_cli_parser_matches_jax(argv):
+    from auromat_tpu.cli import download as jdownload
+    from auromat_tpu_torch.cli import download
+
+    assert vars(download.build_parser().parse_args(argv)) == \
+        vars(jdownload.build_parser().parse_args(argv))
+
+
+@pytest.mark.parametrize("argv", [
+    [], ["esa-iss", "F"], ["themis", "F", "--start", "2012-02-04"],
+    ["esa-iss", "F", "--id", "77", "--start", "yesterday"],
+])
+def test_download_cli_refuses_bad_arguments(argv, capsys):
+    from auromat_tpu_torch.cli import download
+
+    with pytest.raises(SystemExit) as e:
+        download.build_parser().parse_args(argv)
+    assert e.value.code == 2
+
+
+def test_download_cli_esa_iss_from_file_uris(tmp_path, capsys, monkeypatch):
+    """``esa-iss`` fetches a sequence through the port's provider (file://
+    URIs, no network) and needs no card."""
+    import json
+
+    server = tmp_path / "server"
+    server.mkdir()
+    shutil.copy(os.path.join(RES, f"{FRAME}.wcs"), server / "f.wcs")
+    (server / "f.jpg").write_bytes(b"not decoded by a download")
+    (server / "meta.json").write_text("{}")
+    date = "2012-01-25T09:27:08.060000"
+    (server / "77").write_text(json.dumps({
+        "id": 77, "date_start": date, "date_end": date,
+        "image_extension": ".jpg",
+        "metadata_uri": (server / "meta.json").as_uri(),
+        "images": {ISS_KEY: {"date": date,
+                             "image_uri": (server / "f.jpg").as_uri(),
+                             "wcs_uri": (server / "f.wcs").as_uri()}}}))
+    from auromat_tpu_torch.cli import download
+    from auromat_tpu_torch.mapping import iss
+
+    iss_init = iss.ISSMappingProvider.__init__
+
+    def init(self, *a, **k):  # the archive at the file:// URIs above
+        iss_init(self, *a, baseUrl=server.as_uri() + "/", **k)
+
+    monkeypatch.setattr(iss.ISSMappingProvider, "__init__", init)
+    assert download.main(["esa-iss", str(tmp_path / "cache"), "--id", "77",
+                          "--no-raw"]) == 0
+    assert "downloaded 1 frames" in capsys.readouterr().out
+    assert sorted(os.listdir(tmp_path / "cache")) == [
+        f"{ISS_KEY}.jpg", f"{ISS_KEY}.wcs", "api.json", "metadata.json"]

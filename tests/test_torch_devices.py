@@ -32,6 +32,9 @@ from auromat_tpu_torch.ops.georef import (DynGeorefParams, GeorefParams,
                                           georeference_points_df64_full,
                                           georeference_points_generic)
 from auromat_tpu_torch.mapping import miracle, themis
+from auromat_tpu_torch.mapping.iss import ISSMappingProvider
+from auromat_tpu_torch.util.lensdistortion import (
+    correct_lens_distortion, correct_lens_distortion_exif)
 from auromat_tpu_torch.parallel import global_mesh, initialize, make_mesh
 from auromat_tpu_torch.resample import mosaic, resample, resample_mlat_mlt
 
@@ -170,6 +173,15 @@ ENTRY_POINTS = {
         georeference_points_df64_full(s.params, [1.0], [2.0],
                                       projection="ZEA"),
     "pixel_grid": lambda s, tmp: pixel_grid(4, 3),
+    "ISSMappingProvider": lambda s, tmp: ISSMappingProvider(str(tmp)),
+    "convert.make_provider iss": lambda s, tmp: convert.make_provider(
+        "iss", str(tmp), 110.0),
+    "correct_lens_distortion": lambda s, tmp: correct_lens_distortion(
+        s.img, "poly3", (-0.019,)),
+    "correct_lens_distortion_exif": lambda s, tmp:
+        correct_lens_distortion_exif(s.img, {
+            "Model": "NIKON D3S", "LensModel": "24.0 mm f/1.4",
+            "FocalLength": 24.0}),
     "pixel_directions": lambda s, tmp: pixel_directions(TanWcs(s.header)),
     **{f"resample method={m}": (lambda s, tmp, m=m: resample(
         s.mapping, px_per_deg=3, method=m)) for m in RESAMPLE_METHODS},

@@ -45,6 +45,15 @@ only the port is installed:
   masks equal, uint8 within one step on at most 0.1% of the cells) and
   ``georeference_points_generic`` in float64 for ZEA, HPX, QSC and PCO
   (1e-9 deg, NaN masks equal; float32 stays float32).
+* The ISS archive path on the card against the CPU: the lens distortion
+  correction (ptlens, poly3, poly5; uint8 and uint16, numpy and tensor
+  inputs) within one step on at most 1e-3 of the values; the ISS
+  provider's array route (flip, poly3 correction, crop, ``create_mapping``)
+  on a seeded frame at the scaled calibration, grids within 1e-9 deg of the
+  CPU's; ``resample`` of it launches K1; its CDF and NETCDF3 exports read
+  back and resampled on the card give the same uint8 image; the TLE camera
+  position through ``create_mapping`` on the card; ``profiling.benchmark``
+  times CUDA outputs with events.
 """
 
 import os
@@ -780,3 +789,141 @@ def test_georeference_points_generic_gpu_matches_cpu(cuda, code):
         wcs, params, px.astype(np.float32), py.astype(np.float32),
         torch.float32, device=cuda)
     assert la32.dtype == torch.float32
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["uint8", "uint16"])
+@pytest.mark.parametrize("model,params", [("ptlens", (0.01, -0.02, 0.005)),
+                                          ("poly3", (-0.019,)),
+                                          ("poly5", (0.1, 0.01))])
+def test_lens_correction_gpu_matches_cpu(cuda, model, params, dtype):
+    from auromat_tpu_torch.util.lensdistortion import correct_lens_distortion
+
+    img = np.random.default_rng(4).integers(0, 256, (480, 640, 3),
+                                            dtype=np.uint8)
+    if dtype == "uint16":
+        img = img.astype(np.uint16) * 257
+    want = correct_lens_distortion(img, model, params, device="cpu")
+    got = correct_lens_distortion(img, model, params, device=cuda)
+    assert got.dtype == img.dtype and got.shape == img.shape
+    d = np.abs(got.astype(np.int64) - want.astype(np.int64))
+    assert d.max() <= 1 and (d > 0).mean() <= 1e-3
+    # a 2-D tensor stays on the card; its plane equals the image's
+    t = correct_lens_distortion(torch.from_numpy(img[..., 0].astype(np.int32)),
+                                model, params, device=cuda)
+    assert t.device.type == "cuda" and t.dtype == torch.int32
+    assert np.array_equal(t.cpu().numpy(), got[..., 0])
+
+
+def _iss_cache(folder, header):
+    """An offline ISS archive cache around ``header`` (its .wcs written
+    with the port's header cards), poly3 (-0.019) and the 180-degree flip."""
+    import json
+
+    os.makedirs(folder, exist_ok=True)
+    key = "ISS030-E-102170"
+    with open(os.path.join(RES, "ISS030-E-102170_dc.wcs"), "rb") as f:
+        raw = f.read()
+    cards = [raw[i:i + 80] for i in range(0, len(raw), 80)]
+    out = []
+    for c in cards:
+        k = c[:8].decode().strip()
+        if k in ("CD1_1", "CD1_2", "CD2_1", "CD2_2", "CRPIX1", "CRPIX2",
+                 "IMAGEW", "IMAGEH"):
+            c = f"{k:<8}= {header[k]!r:>20}".ljust(80).encode()
+        out.append(c)
+    with open(os.path.join(folder, f"{key}.wcs"), "wb") as f:
+        f.write(b"".join(out))
+    # the frame's file is never decoded: the array route takes decoded ones
+    open(os.path.join(folder, f"{key}.jpg"), "wb").close()
+    date = "2012-01-25T09:27:08.060000"
+    api = {"id": 77, "date_start": date, "date_end": date,
+           "image_extension": ".jpg", "metadata_uri": "unused",
+           "raw_is_upside_down": True,
+           "distortion_correction": {"model": "poly3", "params": [-0.019]},
+           "images": {key: {"date": date, "image_uri": "unused",
+                            "wcs_uri": "unused"}}}
+    with open(os.path.join(folder, "api.json"), "w") as f:
+        json.dump(api, f)
+    with open(os.path.join(folder, "metadata.json"), "w") as f:
+        json.dump({"sequence_metadata": {"Project": "THOR"}}, f)
+    return key
+
+
+@pytest.mark.gpu
+def test_iss_array_route_and_read_back_gpu(cuda, tmp_path):
+    from auromat_tpu_torch.export import cdf as export_cdf
+    from auromat_tpu_torch.export import netcdf as export_nc
+    from auromat_tpu_torch.mapping.cdf import read_mapping as read_cdf
+    from auromat_tpu_torch.mapping.iss import ISSMappingProvider
+    from auromat_tpu_torch.mapping.netcdf import read_mapping as read_nc
+    from auromat_tpu_torch.resample import resample
+
+    header = _scaled_header()
+    key = _iss_cache(str(tmp_path / "iss"), header)
+    assert fits.read_header(str(tmp_path / "iss" / f"{key}.wcs"))["IMAGEW"] == 512
+    decoded = np.random.default_rng(9).integers(0, 256, (384, 512, 3),
+                                                dtype=np.uint8)
+    maps = {}
+    for dev in (cuda, "cpu"):
+        prov = ISSMappingProvider(str(tmp_path / "iss"), offline=True,
+                                  fastCenterCalculation=True, device=dev)
+        prov._download_files(key)
+        img = prov._postprocess_common(decoded)
+        maps[str(dev)] = (img, prov._array_mapping(key, img))
+    (img_g, m), (img_c, mc) = maps["cuda"], maps["cpu"]
+    d = np.abs(img_g.astype(int) - img_c.astype(int))
+    assert d.max() <= 1 and (d > 0).mean() <= 1e-3
+    for name in ("lats", "lons", "latsCenter", "lonsCenter"):
+        a, b = getattr(m, name).filled(np.nan), getattr(mc, name).filled(np.nan)
+        assert np.array_equal(np.isnan(a), np.isnan(b))
+        ok = ~np.isnan(a)
+        assert np.abs(a[ok] - b[ok]).max() < 1e-9
+    before = _kernels.GEOREGRID_BIN.launches
+    r = resample(m, px_per_deg=5, device=cuda)
+    assert _kernels.GEOREGRID_BIN.launches == before + 1
+    assert (~r.center_mask).sum() > 100
+    for write, read, name in ((export_cdf.write, read_cdf, "a.cdf"),
+                              (lambda p, mm: export_nc.write(
+                                  p, mm, format="NETCDF3"), read_nc, "a.nc")):
+        path = str(tmp_path / name)
+        write(path, m)
+        back = read(path)
+        rb = resample(back, px_per_deg=5, device=cuda)
+        assert np.array_equal(rb.center_mask, r.center_mask)
+        assert np.array_equal(rb.img.filled(0), r.img.filled(0))
+
+
+@pytest.mark.gpu
+def test_tle_position_mapping_gpu(cuda, tmp_path):
+    from auromat_tpu_torch.mapping.astrometry import create_mapping
+    from auromat_tpu_torch.mapping.spacecraft import resolve_camera_position
+
+    tle = tmp_path / "iss.tle"
+    tle.write_text(
+        "1 25544U 98067A   12025.39384329  .00000000  00000-0  00000-0 0    04\n"
+        "2 25544  51.6283 123.3888 0093999 252.4012 171.2148 15.81821010    06\n")
+    header = {k: v for k, v in _scaled_header().items()
+              if not k.startswith("POS")}
+    pos, t, _ = resolve_camera_position(header, str(tle))
+    hpos = fits.get_spacecraft_position(_scaled_header())
+    assert np.linalg.norm(pos - np.array(hpos)) < 15.0
+    img = np.zeros((384, 512, 3), np.uint8)
+    m = create_mapping(header, img, pos, t, device=cuda)
+    mc = create_mapping(header, img, pos, t, device="cpu")
+    a, b = m.latsCenter.filled(np.nan), mc.latsCenter.filled(np.nan)
+    ok = ~np.isnan(a) & ~np.isnan(b)
+    assert ok.mean() > 0.3 and np.abs(a[ok] - b[ok]).max() < 1e-9
+
+
+@pytest.mark.gpu
+def test_profiling_benchmark_uses_cuda_events(cuda):
+    from auromat_tpu_torch.profiling import StageTimer, benchmark
+
+    x = torch.ones(1 << 20, device=cuda)
+    med, times = benchmark(lambda: x * 2, iters=5)
+    assert len(times) == 5 and 0 < med < 1.0
+    timer = StageTimer()
+    with timer("mul") as stage:
+        stage.sync(x * 3)
+    assert timer.total("mul") > 0
