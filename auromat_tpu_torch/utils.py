@@ -1,9 +1,12 @@
-"""Host geometry utilities (numpy), counterpart of ``auromat_tpu.utils``.
+"""Geometry utilities, counterpart of ``auromat_tpu.utils``.
 
-The parts the mapping data model, resampling and the all-sky providers
-need: the outline of a binary image, its convex hull, point-in-polygon,
-polygon area and centroid, the nearest element of a sorted array, and the
-longitude wrap.
+The vector helpers (lengths, unit vectors, angles) are tensor functions
+that keep their input's dtype and device; they take tensors only
+(TypeError on arrays), as ``coordinates.wcs.world2pix`` does. The rest is host numpy, as the
+mapping data model, resampling and the all-sky providers need it: the
+outline of a binary image, its convex hull, point-in-polygon, polygon area
+and centroid, the nearest element of a sorted array, consecutive
+duplicates dropped, and the longitude wrap.
 
 ``outline`` is a numpy border follower, not OpenCV: the card's machine
 has no cv2. It reproduces ``cv2.findContours(RETR_EXTERNAL,
@@ -23,6 +26,41 @@ float64 with numpy or CPU torch directly).
 """
 
 import numpy as np
+import torch
+
+
+def _tensors(*ts):
+    """The vector helpers take tensors only: an array or a list would be
+    computed on the host without the caller choosing it."""
+    for t in ts:
+        if not torch.is_tensor(t):
+            raise TypeError(f"expected a tensor, got {type(t).__name__}")
+
+
+def vector_lengths(vectors, axis=-1):
+    """Euclidean lengths along ``axis`` of a tensor of vectors."""
+    _tensors(vectors)
+    return torch.sqrt((vectors * vectors).sum(dim=axis))
+
+
+def unit_vectors(vectors, axis=-1):
+    """``vectors`` scaled to unit length along ``axis``."""
+    return vectors / vector_lengths(vectors, axis).unsqueeze(axis)
+
+
+def angle_between(v1, v2, axis=-1):
+    """Angles in radians between unit-vector tensors, in [0, pi]."""
+    _tensors(v1, v2)
+    return torch.arccos(torch.clamp((v1 * v2).sum(dim=axis), -1, 1))
+
+
+def signed_angle_between(v1, v2):
+    """Signed angles in radians between (n, 2) vector tensors, in
+    [-pi, pi]."""
+    _tensors(v1, v2)
+    return torch.atan2(v1[:, 0] * v2[:, 1] - v1[:, 1] * v2[:, 0],
+                       v1[:, 0] * v2[:, 0] + v1[:, 1] * v2[:, 1])
+
 
 # OpenCV's 8-neighbour chain code: direction s -> (dx, dy), counterclockwise
 # from east with y pointing down (CV_INIT_3X3_DELTAS)
@@ -207,6 +245,17 @@ def find_nearest(a, value):
     if idx >= len(a):
         return len(a) - 1
     return idx if abs(a[idx] - value) < abs(a[idx - 1] - value) else idx - 1
+
+
+def without_consecutive_duplicates(points):
+    """Drop consecutive duplicate rows of an (n, d) array (reference
+    utils.withoutConsecutiveDuplicates, used on traced outlines)."""
+    points = np.asarray(points)
+    if len(points) < 2:
+        return points
+    keep = np.ones(len(points), dtype=bool)
+    keep[1:] = (points[1:] != points[:-1]).any(axis=1)
+    return points[keep]
 
 
 def wrap_lon_180(lon):

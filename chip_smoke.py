@@ -8,8 +8,10 @@ ISS030-E-102170 (4256x2832) and mean-regrid it onto the 539x524 fixed grid
 mosaic, the all-sky-imager path (THEMIS and MIRACLE providers,
 ``mosaic``, the interpolation routes, ``convert``), the magnetic grid
 (``resample_mlat_mlt``), georeferencing through the generic FITS
-projections and the ESA ISS archive path (lens correction on the card,
-products read back, TLE camera positions), and checks them:
+projections, the ESA ISS archive path (lens correction on the card,
+products read back, TLE camera positions) and the solving path
+(``solve_sequence`` with a stand-in ``solve-field``, the Earth checks on
+the card), and checks them:
 
 1. the card (``nvidia-smi`` name and power limit);
 2. starts the build of every kernel source from this checkout, one nvcc
@@ -150,7 +152,26 @@ products read back, TLE camera positions), and checks them:
     ``resolve_camera_position`` (SGP4 on the host) and ``create_mapping``
     on the card, against the mapping from the header's own position;
 25. ``profiling.benchmark`` of K1 at the main path's shapes beside [5]'s
-    CUDA-event median.
+    CUDA-event median;
+26. the solving path: the seeded ISS frame under three names (saved with
+    numpy; ``load_image``, ``save_image`` and ``read_exif_time`` replaced by
+    numpy stand-ins for the phase: no PIL here) and a stand-in
+    ``solve-field`` (a sh script writing the real .wcs without its POS*
+    cards) through ``solve_sequence(mask=False)`` with the fitted ISS TLE
+    (no cv2 here, so no masking): NORAD id, IMAGEW/IMAGEH and SGP4
+    positions within 15 km of the real header's stamped; a second call
+    runs the solver 0 times; a solver sleeping past a 2 s timeout gives
+    None and leaves no process of its group; ``is_consistent`` and
+    ``intersects_earth`` on the card equal the CPU (True, False, False for
+    the stamped header and the header turned to nadir and zenith), timed;
+    the stamped header through ``create_mapping`` -> ``resample`` (K1
+    launched, held against its plain version on the recorded arguments and
+    timed: a kernel row of its own) equal to [24]'s TLE mapping resampled;
+    ``util.histogram.histogram2d`` with the weights (count, R, G, B,
+    elevation) over the mapping's valid centres on the card against the
+    host (counts equal, sums within 1e-12 relative), timed;
+    ``io.fits.get_catalog_stars('bright')`` and
+    ``recompute_xyls_pixel_positions`` on the card against the CPU.
 
 Every kernel row gets, beside its time and its plain version's, its bound
 (``bound_ms``: the bytes the function must move — every index, the data
@@ -1920,6 +1941,12 @@ def stub_rawpy():
     return mod
 
 
+def iss_frame(np):
+    """The seeded 4256x2832 uint8 frame of the ISS path ([23], [24], [26])."""
+    return np.random.default_rng(SEED + 7).integers(0, 256, (2832, 4256, 3),
+                                                    dtype=np.uint8)
+
+
 def iss_cache(np, folder):
     """An offline ESA ISS archive cache: the real .wcs, api.json with the
     archive's poly3 (-0.019) model and the 180-degree flip, metadata.json,
@@ -1942,8 +1969,7 @@ def iss_cache(np, folder):
     with open(os.path.join(folder, "metadata.json"), "w") as f:
         json.dump({"sequence_metadata": {"Project": "THOR"},
                    "image_metadata": {ISS_KEY: {"exposure": 1.0}}}, f)
-    frame = np.random.default_rng(SEED + 7).integers(0, 256, (2832, 4256, 3),
-                                                     dtype=np.uint8)
+    frame = iss_frame(np)
     with open(os.path.join(folder, f"{ISS_KEY}.NEF"), "wb") as f:
         np.save(f, frame)
     return frame
@@ -2178,6 +2204,246 @@ def iss_phases(torch, np, card, k1_ms_main):
                       *on_iss["K1"])
 
 
+def stand_ins():
+    """tests/torch_solving_stand_ins.py, loaded by path (numpy and the
+    standard library only): the stand-in ``solve-field``, its call log, the
+    process-group scan and the header turned to nadir or zenith."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "torch_solving_stand_ins",
+        os.path.join(os.path.dirname(RES), "torch_solving_stand_ins.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def solving_phase(torch, np, card):
+    """Phase 26: the solving path on the card. A folder of the seeded ISS
+    frame under three names and a stand-in ``solve-field`` through
+    ``solve_sequence`` (TLE positions), the resume and the timeout kill;
+    the Earth checks on the card against the CPU; the stamped header
+    through ``create_mapping`` -> ``resample`` on K1 against [24]'s TLE
+    mapping; ``histogram2d`` with a list of weights on the card against the
+    host; the star projections of ``io.fits`` on the card against the CPU.
+    Returns the kernel row of its resample's K1."""
+    import tempfile
+
+    from auromat_tpu_torch.io import fits
+    from auromat_tpu_torch.mapping.astrometry import create_mapping
+    from auromat_tpu_torch.mapping.spacecraft import resolve_camera_position
+    from auromat_tpu_torch.ops import _kernels, georegrid
+    from auromat_tpu_torch.resample import resample
+    from auromat_tpu_torch.solving import solving, spacecraft
+    from auromat_tpu_torch.util.histogram import histogram2d
+
+    si = stand_ins()
+    dev = torch.device("cuda")
+    k1 = _kernels.GEOREGRID_BIN
+    frame = iss_frame(np)
+    date = datetime.datetime.strptime(ISS_DATE, "%Y-%m-%dT%H:%M:%S.%f")
+    names = [f"ISS030-E-{102170 + i}.jpg" for i in range(3)]
+    # no PIL on this machine: the frame is saved with numpy under the JPEG
+    # names, and the three readers the path calls are replaced for the
+    # phase (load_image, save_image; read_exif_time gives the header's
+    # DATE-OBS: one frame under three names)
+    stubs = {(solving, "load_image"): lambda path: np.load(path),
+             (solving, "save_image"): lambda path, img: np.save(path, img),
+             (spacecraft, "read_exif_time"): lambda path: date}
+    real = {k: getattr(*k) for k in stubs}
+    for (mod, name), fn in stubs.items():
+        setattr(mod, name, fn)
+    tmp = tempfile.TemporaryDirectory()
+    try:
+        images = os.path.join(tmp.name, "images")
+        os.makedirs(images)
+        with open(os.path.join(images, names[0]), "wb") as f:
+            np.save(f, frame)
+        for n in names[1:]:
+            os.link(os.path.join(images, names[0]), os.path.join(images, n))
+        real_header = fits.read_header(os.path.join(RES,
+                                                    "ISS030-E-102170_dc.wcs"))
+        solved_src = os.path.join(tmp.name, "solved.wcs")
+        fits.write_header(si.unstamped(real_header), solved_src)
+        tle_path = os.path.join(tmp.name, "iss.tle")
+        with open(tle_path, "w") as f:
+            f.write(ISS_TLE)
+        fake = si.fake_solve_field(tmp.name, solved_src)
+        wcs_dir = os.path.join(tmp.name, "wcs")
+        kw = dict(tle_path=tle_path, mask=False, solve_field=fake,
+                  scale_range=(40.0, 60.0))
+        t0 = time.perf_counter()
+        res = spacecraft.solve_sequence(images, wcs_dir, **kw)
+        seq_ms = (time.perf_counter() - t0) * 1e3
+        n_first = len(si.solver_calls(tmp.name))
+        hpos = np.array(fits.get_spacecraft_position(real_header))
+        dists = []
+        for n in names:
+            h = fits.read_header(res[n])
+            dists.append(float(np.linalg.norm(
+                np.array(fits.get_spacecraft_position(h)) - hpos)))
+            if not (fits.get_norad_id(h) == 25544 and h["IMAGEW"] == 4256
+                    and h["IMAGEH"] == 2832 and dists[-1] < 15.0
+                    and fits.get_photo_time(h) == date):
+                raise AssertionError(f"solve_sequence stamped {n}: NORAD "
+                                     f"{fits.get_norad_id(h)}, "
+                                     f"{h.get('IMAGEW')}x{h.get('IMAGEH')}, "
+                                     f"position {dists[-1]} km off")
+        again = spacecraft.solve_sequence(images, wcs_dir, **kw)
+        n_again = len(si.solver_calls(tmp.name)) - n_first
+        if n_first != 3 or n_again != 0 or again != res:
+            raise AssertionError(f"solve_sequence: {n_first} solver calls, "
+                                 f"{n_again} on the resumed run")
+        # the timeout kill: a solver that sleeps past a 2 s timeout
+        slow = si.fake_solve_field(tmp.name, solved_src, sleep=60)
+        t0 = time.perf_counter()
+        out = solving.solve_image(os.path.join(images, names[0]),
+                                  os.path.join(tmp.name, "slow.wcs"),
+                                  mask=False, solve_field=slow, timeout=2,
+                                  strategies=solving.STRATEGIES[:1],
+                                  scale_range=(40.0, 60.0))
+        kill_s = time.perf_counter() - t0
+        pgid = si.solver_calls(tmp.name)[-1][0]
+        deadline = time.time() + 10
+        while si.live_group_members(pgid) and time.time() < deadline:
+            time.sleep(0.1)
+        left = si.live_group_members(pgid)
+        if out is not None or left or kill_s > 20:
+            raise AssertionError(f"solve_image past its timeout returned "
+                                 f"{out!r} after {kill_s:.1f} s, group "
+                                 f"{pgid} still has {left}")
+        stamped = fits.read_header(res[names[0]])
+    finally:
+        for (mod, name), fn in real.items():
+            setattr(mod, name, fn)
+        tmp.cleanup()
+    print(f"[26] solve_sequence over 3 names of the seeded 4256x2832 frame "
+          f"(numpy stand-ins for PIL's load_image/save_image and the EXIF "
+          f"time; mask=False: no cv2 on this machine, so mask_starfield, "
+          f"which needs OpenCV's contours and Hough lines, did not run "
+          f"here) with a stand-in solve-field and the fitted ISS TLE: 3 "
+          f"solver calls, 3 headers with NORADID 25544, IMAGEW/IMAGEH "
+          f"4256x2832, SGP4 positions {max(dists):.3f} km from the real "
+          f"header's, {seq_ms:.1f} ms wall; resumed: 0 solver calls; a "
+          f"solver sleeping past a 2 s timeout: None after {kill_s:.2f} s, "
+          f"its process group gone", flush=True)
+
+    # -- the Earth checks on the card and on the CPU ------------------------
+    pos, t, _ = resolve_camera_position(stamped)
+    checks = {"stamped": (stamped, True),
+              "all-Earth": (si.pointed(stamped, pos, -1), False),
+              "all-sky": (si.pointed(stamped, pos, 1), False)}
+    check_ms = {}
+    for name, (h, want) in checks.items():
+        got = {d: (spacecraft.is_consistent(h, device=d),
+                   spacecraft.intersects_earth(h, device=d))
+               for d in (dev, "cpu")}
+        if got[dev] != got["cpu"] or got[dev][0] != want or \
+                got[dev][1] != (name != "all-sky"):
+            raise AssertionError(f"Earth checks on {name}: card {got[dev]}, "
+                                 f"CPU {got['cpu']}, want consistent {want}")
+        check_ms[name] = wall_ms(torch, lambda: spacecraft.is_consistent(
+            h, device=dev), N_TIMED)
+    print(f"[26] is_consistent / intersects_earth on the card == the CPU: "
+          f"stamped True/True, all-Earth False/True, all-sky False/False; "
+          f"is_consistent wall ms on the card (median of {N_TIMED}): "
+          + ", ".join(f"{k} {v:.2f}" for k, v in check_ms.items())
+          + f"; on {card}", flush=True)
+
+    # -- the stamped header -> create_mapping -> resample on K1 -------------
+    m = create_mapping(stamped, frame, pos, t, device=dev)
+    with recorded((georegrid, "bin_rgbelev_from_indices")) as rec:
+        k1.launches = 0
+        r = resample(m, px_per_deg=25, device=dev)
+        torch.cuda.synchronize()
+        launches = k1.launches
+    with tempfile.TemporaryDirectory() as d:  # [24]'s TLE mapping
+        tle_path = os.path.join(d, "iss.tle")
+        with open(tle_path, "w") as f:
+            f.write(ISS_TLE)
+        header24 = fits.FitsHeader({k: v for k, v in real_header.items()
+                                    if not k.startswith("POS")})
+        pos24, t24, _ = resolve_camera_position(header24, tle_path)
+    r24 = resample(create_mapping(header24, frame, pos24, t24, device=dev),
+                   px_per_deg=25, device=dev)
+    same = (np.array_equal(pos, pos24) and t == t24 and
+            np.array_equal(r.img.filled(0), r24.img.filled(0)) and
+            np.array_equal(r.center_mask, r24.center_mask) and
+            all(np.array_equal(getattr(r, k).data, getattr(r24, k).data,
+                               equal_nan=True) for k in ("lats", "lons")))
+    if launches < 1 or not same:
+        raise AssertionError(f"stamped header composite != [24]'s TLE "
+                             f"mapping resampled ({launches} K1 launches)")
+    print(f"[26] the stamped header -> create_mapping (float64, on the card) "
+          f"-> resample(px_per_deg=25) -> {r.img.shape[0]}x{r.img.shape[1]}: "
+          f"{launches} launch(es) of K1, == [24]'s TLE mapping resampled "
+          f"(same position, uint8, masks, grids)", flush=True)
+    on_solved = kernels_on_recorded(torch, rec, card, "[26]",
+                                    "the solved header's mapping")
+    del rec
+
+    # -- histogram2d with a list of weights, card vs host -------------------
+    ok = ~m.center_mask
+    x, y = m.lonsCenter.data[ok], m.latsCenter.data[ok]
+    weights = [None] + [m.img.data[..., c][ok] for c in range(3)] + \
+        [m.elevation.data[ok]]
+    bins = (int(np.ptp(x) * 25) + 1, int(np.ptp(y) * 25) + 1)
+    rng_ = [[float(x.min()), float(x.max())], [float(y.min()), float(y.max())]]
+    call = lambda d: histogram2d(x, y, bins, range=rng_, weights=weights,
+                                 device=d)
+    (hc, xe, ye), (hh, hxe, hye) = call(dev), call("cpu")
+    rel = max(float(np.max(np.abs(a - b) / np.maximum(np.abs(b), 1e-300)))
+              for a, b in zip(hc[1:], hh[1:]))
+    if not (np.array_equal(hc[0], hh[0]) and np.array_equal(xe, hxe) and
+            np.array_equal(ye, hye) and rel <= 1e-12 and
+            int(hc[0].sum()) == int(ok.sum())):
+        raise AssertionError(f"histogram2d card vs host: counts equal "
+                             f"{np.array_equal(hc[0], hh[0])}, sums {rel}")
+    card_ms = wall_ms(torch, lambda: call(dev), N_WALL)
+    xs, ys = torch.from_numpy(x).to(dev), torch.from_numpy(y).to(dev)
+    ws = [w if w is None else torch.from_numpy(np.ascontiguousarray(w)).to(
+        dev) for w in weights]
+    resident_ms = wall_ms(torch, lambda: histogram2d(
+        xs, ys, bins, range=rng_, weights=ws, device=dev), N_WALL)
+    host_ms = wall_ms(torch, lambda: call("cpu"), N_WALL)
+    print(f"[26] histogram2d(count, R, G, B, elevation) over the mapping's "
+          f"{int(ok.sum())} valid centres into {bins[0]}x{bins[1]} bins: "
+          f"card == host (counts equal, sums within {rel:.3g} relative); "
+          f"wall ms (median of {N_WALL}) card {card_ms:.1f} from host arrays, "
+          f"{resident_ms:.1f} from tensors on the card, host {host_ms:.1f}; "
+          f"on {card}", flush=True)
+
+    # -- the star projections of io.fits, card vs CPU -----------------------
+    moved = stamped.copy()
+    moved["CRVAL1"] += 0.05
+    moved["CD1_2"] *= 1.001
+    with tempfile.TemporaryDirectory() as d:
+        xyls, wcs = os.path.join(d, "s.xyls"), os.path.join(d, "s.wcs")
+        rng = np.random.default_rng(SEED)
+        fits.write_xyls(xyls, rng.random(1000) * 4256, rng.random(1000) * 2832)
+        fits.write_header(stamped, wcs)
+        proj = {dv: (fits.get_catalog_stars(stamped, limit=0, device=dv),
+                     fits.recompute_xyls_pixel_positions(xyls, wcs, moved,
+                                                         device=dv))
+                for dv in (dev, "cpu")}
+    n_stars = len(proj["cpu"][0][0])
+    perr = max(float(np.max(np.abs(a - b), initial=0.0))
+               for pair in zip(proj[dev], proj["cpu"])
+               for a, b in zip(*pair))
+    if not (n_stars > 0 and len(proj[dev][0][0]) == n_stars and perr < 1e-9):
+        raise AssertionError(f"fits star projections card vs CPU: {n_stars} "
+                             f"stars, {perr} px")
+    print(f"[26] io.fits on the card == the CPU: get_catalog_stars('bright') "
+          f"{n_stars} stars in the frame, recompute_xyls_pixel_positions of "
+          f"1000 stars under a moved solution; max {perr:.3g} px", flush=True)
+    return kernel_row("georegrid_bin (K1) on the solving path, the solved "
+                      "header -> create_mapping -> resample('mean') "
+                      f"-> {r.img.shape[0]}x{r.img.shape[1]}",
+                      "auromat_tpu_torch/ops/csrc/georegrid_bin.cu",
+                      "auromat_tpu/ops/georegrid.py:65", launches,
+                      *on_solved["K1"])
+
+
 def main():
     import torch
 
@@ -2361,6 +2627,7 @@ def main():
     rows.append(asi_phases(torch, np, card))
     rows += magnetic_generic_phases(torch, np, card)
     rows.append(iss_phases(torch, np, card, k1_ms))
+    rows.append(solving_phase(torch, np, card))
 
     print(card)
     print(json.dumps({"kernels": rows}))

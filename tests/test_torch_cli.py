@@ -365,6 +365,18 @@ def test_port_modules_import_no_jax():
         "import auromat_tpu_torch.coordinates.spacetrack\n"
         "import auromat_tpu_torch.util.lensdistortion\n"
         "import auromat_tpu_torch.util.exiftool, auromat_tpu_torch.cli.download\n"
+        "import auromat_tpu_torch.solving, auromat_tpu_torch.solving.masking\n"
+        "import auromat_tpu_torch.solving.noise\n"
+        "import auromat_tpu_torch.solving.solving\n"
+        "import auromat_tpu_torch.solving.spacecraft\n"
+        "import auromat_tpu_torch.solving.eol, auromat_tpu_torch.io.fits\n"
+        "import auromat_tpu_torch.util.url, auromat_tpu_torch.util.histogram\n"
+        "import auromat_tpu_torch.util.decorators\n"
+        "import auromat_tpu_torch.util.coroutine, auromat_tpu_torch.util.movie\n"
+        "import auromat_tpu_torch.coordinates.constellations\n"
+        "import auromat_tpu_torch.utils\n"
+        "from auromat_tpu_torch.coordinates.constellations import bright_stars\n"
+        "bright_stars()\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'auromat_tpu')]\n"
         "print(bad)\n"

@@ -36,6 +36,10 @@ from auromat_tpu_torch.mapping.iss import ISSMappingProvider
 from auromat_tpu_torch.util.lensdistortion import (
     correct_lens_distortion, correct_lens_distortion_exif)
 from auromat_tpu_torch.parallel import global_mesh, initialize, make_mesh
+from auromat_tpu_torch.solving import eol
+from auromat_tpu_torch.solving.spacecraft import (intersects_earth,
+                                                  is_consistent)
+from auromat_tpu_torch.util.histogram import histogram2d, histogramdd
 from auromat_tpu_torch.resample import mosaic, resample, resample_mlat_mlt
 
 RES = os.path.join(os.path.dirname(__file__), "resources")
@@ -183,6 +187,20 @@ ENTRY_POINTS = {
             "Model": "NIKON D3S", "LensModel": "24.0 mm f/1.4",
             "FocalLength": 24.0}),
     "pixel_directions": lambda s, tmp: pixel_directions(TanWcs(s.header)),
+    "intersects_earth": lambda s, tmp: intersects_earth(s.header),
+    "is_consistent": lambda s, tmp: is_consistent(s.header),
+    "histogram2d": lambda s, tmp: histogram2d([0.5], [0.5], 2,
+                                              weights=[None]),
+    "histogramdd": lambda s, tmp: histogramdd(np.zeros((1, 2)), 2,
+                                              weights=[None]),
+    "eol.correct_lens_distortion": lambda s, tmp: eol.correct_lens_distortion(
+        RES, str(tmp / "out")),
+    "fits.get_catalog_stars": lambda s, tmp: fits.get_catalog_stars(
+        s.header),
+    # the device is resolved before the star list is read
+    "fits.recompute_xyls_pixel_positions": lambda s, tmp:
+        fits.recompute_xyls_pixel_positions(str(tmp / "stars.xyls"), WCS,
+                                            WCS),
     **{f"resample method={m}": (lambda s, tmp, m=m: resample(
         s.mapping, px_per_deg=3, method=m)) for m in RESAMPLE_METHODS},
 }

@@ -54,6 +54,14 @@ only the port is installed:
   back and resampled on the card give the same uint8 image; the TLE camera
   position through ``create_mapping`` on the card; ``profiling.benchmark``
   times CUDA outputs with events.
+* The solving path's checks on the card against the CPU:
+  ``is_consistent``/``intersects_earth`` on the ISS030 header and on it
+  turned to nadir and zenith (the same booleans, float64 latitudes within
+  1e-9 deg, NaN masks equal), and ``util.histogram.histogram2d`` with a
+  list of weights (counts and edges equal, sums within 1e-12 relative);
+  ``io.fits.get_catalog_stars('bright')`` and
+  ``recompute_xyls_pixel_positions``, projected in float64 on the card,
+  within 1e-9 px of the CPU's.
 """
 
 import os
@@ -72,6 +80,7 @@ from auromat_tpu_torch.ops.georegrid import (bin_rgbelev_from_indices,
                                              georegrid_inputs, georegrid_mean)
 from auromat_tpu_torch.ops import regrid_pallas as rp
 from auromat_tpu_torch.ops.regrid import bin_indices, fixed_grid
+from torch_solving_stand_ins import pointed
 
 RES = os.path.join(os.path.dirname(__file__), "resources")
 GRID = fixed_grid((36, 25), 47.0, 62.0, -112.0, -91.0)
@@ -927,3 +936,72 @@ def test_profiling_benchmark_uses_cuda_events(cuda):
     with timer("mul") as stage:
         stage.sync(x * 3)
     assert timer.total("mul") > 0
+
+
+@pytest.mark.gpu
+def test_earth_checks_gpu_match_cpu(cuda):
+    from auromat_tpu_torch.solving import spacecraft
+
+    header = fits.read_header(os.path.join(RES, "ISS030-E-102170_dc.wcs"))
+    pos = fits.get_shifted_spacecraft_position(header)[:3]
+    for h, want in ((header, True), (pointed(header, pos, -1), False),
+                    (pointed(header, pos, 1), False)):
+        assert spacecraft.is_consistent(h, device=cuda) == \
+            spacecraft.is_consistent(h, device="cpu") == want
+        assert spacecraft.intersects_earth(h, device=cuda) == \
+            spacecraft.intersects_earth(h, device="cpu")
+        lat, (px, py) = spacecraft._latitudes(h, 110.0, cuda)
+        clat, _ = spacecraft._latitudes(h, 110.0, "cpu")
+        a, b = lat(px, py), clat(px, py)
+        assert np.array_equal(np.isnan(a), np.isnan(b))
+        ok = ~np.isnan(a)
+        assert not ok.any() or np.abs(a[ok] - b[ok]).max() < 1e-9
+
+
+@pytest.mark.gpu
+def test_histogram2d_gpu_matches_cpu(cuda):
+    from auromat_tpu_torch.util.histogram import histogram2d
+
+    rng = np.random.default_rng(8)
+    x = rng.uniform(-1, 11, 200_000)
+    y = rng.uniform(-2, 6, 200_000).astype(np.float32)
+    x[:100] = 10.0
+    y[100:200] = np.nan
+    ws = [None, rng.random(200_000), rng.integers(0, 256, 200_000)]
+    for rng_ in ([[0, 10], [-1, 5]], None):
+        xs, ys = (x, y) if rng_ else (x[200:], y[200:])
+        wl = ws if rng_ else [w if w is None else w[200:] for w in ws]
+        got = histogram2d(torch.from_numpy(xs).to(cuda), ys, (70, 50),
+                          range=rng_, weights=wl, device=cuda)
+        want = histogram2d(xs, ys, (70, 50), range=rng_, weights=wl,
+                           device="cpu")
+        assert np.array_equal(got[1], want[1])
+        assert np.array_equal(got[2], want[2])
+        assert np.array_equal(got[0][0], want[0][0])
+        for g, w in zip(got[0][1:], want[0][1:]):
+            assert_allclose(g, w, rtol=1e-12, atol=0)
+
+
+@pytest.mark.gpu
+def test_fits_star_projections_gpu_match_cpu(cuda, tmp_path):
+    header = fits.read_header(os.path.join(RES, "ISS030-E-102170_dc.wcs"))
+    for limit in (500, 0):
+        got = fits.get_catalog_stars(header, limit=limit, device=cuda)
+        want = fits.get_catalog_stars(header, limit=limit, device="cpu")
+        assert len(got[0]) == len(want[0]) > 0
+        for g, w in zip(got, want):
+            assert_allclose(g, w, rtol=0, atol=1e-9)
+    rng = np.random.default_rng(3)
+    fits.write_xyls(tmp_path / "s.xyls", rng.random(40) * 4256,
+                    rng.random(40) * 2832)
+    moved = header.copy()
+    moved["CRVAL1"] += 0.05
+    moved["CD1_2"] *= 1.001
+    wcs = os.path.join(RES, "ISS030-E-102170_dc.wcs")
+    got = fits.recompute_xyls_pixel_positions(tmp_path / "s.xyls", wcs,
+                                              moved, device=cuda)
+    want = fits.recompute_xyls_pixel_positions(tmp_path / "s.xyls", wcs,
+                                               moved, device="cpu")
+    for g, w in zip(got, want):
+        assert g.dtype == np.float64 and g.shape == (40,)
+        assert_allclose(g, w, rtol=0, atol=1e-9)
