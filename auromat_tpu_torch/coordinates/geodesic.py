@@ -2,12 +2,13 @@
 data model and resampling use.
 
 A copy of the jax-free ``auromat_tpu.coordinates.geodesic`` (importing it
-would import jax through ``auromat_tpu/__init__``), cut to
-:func:`angular_distance` (resample resolution, pixel scales),
-:func:`contains_or_crosses_pole` (bounding boxes) and :func:`distance`/
-:func:`intermediate` (``BoundingBox.center``/``size``), with the
-vectorized Vincenty inverse and direct problems they call. Courses,
-destinations and geodesic lines wait until a ported caller needs them.
+would import jax through ``auromat_tpu/__init__``): :func:`angular_distance`
+(resample resolution, pixel scales), :func:`contains_or_crosses_pole`
+(bounding boxes), :func:`distance`/:func:`intermediate`
+(``BoundingBox.center``/``size``), and :func:`course`,
+:func:`destination` and :func:`line` (the drawing layer's scanline and
+azimuth coroutines), over the vectorized Vincenty inverse and direct
+problems.
 """
 
 from collections import namedtuple
@@ -325,6 +326,20 @@ def angular_distance(location1, location2):
     return float(a) if np.ndim(a) == 0 else a
 
 
+def course(location1, location2):
+    """Azimuth (degrees) at location1 of the geodesic to location2."""
+    _, _, azi1, _ = _inverse(location1[0], location1[1], location2[0], location2[1])
+    return float(azi1) if np.ndim(azi1) == 0 else azi1
+
+
+def destination(location, azimuth, dist):
+    """Location after travelling ``dist`` meters on azimuth from location."""
+    lat2, lon2, _ = _direct(location[0], location[1], azimuth, dist)
+    if np.ndim(lat2) == 0:
+        return Location(float(lat2), float(lon2))
+    return lat2, lon2
+
+
 def intermediate(location1, location2, f=0.5):
     """Point at fraction f of the geodesic from location1 to location2."""
     s, _, azi1, _ = _inverse(location1[0], location1[1], location2[0], location2[1])
@@ -332,6 +347,24 @@ def intermediate(location1, location2, f=0.5):
     if np.ndim(lat2) == 0:
         return Location(float(lat2), float(lon2))
     return lat2, lon2
+
+
+def line(location1, location2, resolution=1000):
+    """Points along the geodesic at roughly ``resolution``-meter spacing.
+
+    Reference: auromat/coordinates/geodesic.py:46-78.
+    :returns: (n, 2) array of lat, lon in degrees
+    """
+    s, _, azi1, _ = _inverse(location1[0], location1[1], location2[0], location2[1])
+    if not np.isfinite(s):
+        raise ValueError(
+            "no geodesic solution for this (degenerate antipodal) pair")
+    num = int(s // resolution)
+    if num < 2:
+        return np.array([[location1[0], location1[1]], [location2[0], location2[1]]])
+    ds = np.linspace(0.0, float(s), num)
+    lat2, lon2, _ = _direct(location1[0], location1[1], float(azi1), ds)
+    return np.stack([lat2, lon2], axis=-1)
 
 
 def _course_delta_sum(points):

@@ -162,6 +162,13 @@ def _pixel_dirs(p, px, py):
     return vx, vy, vz
 
 
+def georef_dirs_dyn(p: DynGeorefParams, px, py):
+    """Pixel coords -> J2000 unit directions (vx, vy, vz) with per-frame
+    params ``p``, on the device and in the dtype of ``p``, ``px`` and
+    ``py``."""
+    return _pixel_dirs(p, px, py)
+
+
 def _intersect(p, vx, vy, vz, dtype):
     """Directed ray/inflated-ellipsoid intersection (origin = camera).
 

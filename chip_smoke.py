@@ -9,9 +9,10 @@ mosaic, the all-sky-imager path (THEMIS and MIRACLE providers,
 ``mosaic``, the interpolation routes, ``convert``), the magnetic grid
 (``resample_mlat_mlt``), georeferencing through the generic FITS
 projections, the ESA ISS archive path (lens correction on the card,
-products read back, TLE camera positions) and the solving path
+products read back, TLE camera positions), the solving path
 (``solve_sequence`` with a stand-in ``solve-field``, the Earth checks on
-the card), and checks them:
+the card) and the drawing layer's numbers (the KML overlay on K1, the
+horizon, RA/Dec and constellation overlays), and checks them:
 
 1. the card (``nvidia-smi`` name and power limit);
 2. starts the build of every kernel source from this checkout, one nvcc
@@ -171,7 +172,19 @@ the card), and checks them:
     elevation) over the mapping's valid centres on the card against the
     host (counts equal, sums within 1e-12 relative), timed;
     ``io.fits.get_catalog_stars('bright')`` and
-    ``recompute_xyls_pixel_positions`` on the card against the CPU.
+    ``recompute_xyls_pixel_positions`` on the card against the CPU;
+27. the drawing layer's numbers on the card against the CPU, on the seeded
+    frame's 12 MP mapping (the real header, ``create_mapping`` on the
+    card): ``draw_kml_image`` (PIL's writer replaced by numpy for the
+    phase) resampling with ``resample('mean')`` at 100 arcsec (K1
+    launched, held against its plain version on the recorded arguments
+    and timed: a kernel row of its own), the KML text and RGBA equal; the
+    horizon hit mask (``georeference_points`` at altitude 0) equal; the
+    RA/Dec grid (``tan_pix2world``) and the constellation segments' end
+    points (``tan_world2pix``) within 1e-9; wall ms of each on both; host
+    ms of ``polygons_from_mapping_or_collection`` and
+    ``stereographic_project`` on the resampled overlay; ``draw_plot``
+    raising ImportError where matplotlib is not installed.
 
 Every kernel row gets, beside its time and its plain version's, its bound
 (``bound_ms``: the bytes the function must move — every index, the data
@@ -2444,6 +2457,151 @@ def solving_phase(torch, np, card):
                       *on_solved["K1"])
 
 
+def drawing_phase(torch, np, card):
+    """Phase 27: the numeric halves of the drawing layer's device-reaching
+    figures on the card and again on the CPU, on the seeded ISS frame's
+    12 MP mapping: ``draw_kml_image`` (its PNG written by a numpy stand-in
+    for PIL; ``resample('mean')`` at 100 arcsec launches K1), the horizon
+    hit mask, the RA/Dec grid and the constellation segments; the host
+    times of the polygons and the stereographic projection; and a figure
+    function without matplotlib. Returns the kernel row of the overlay's
+    K1."""
+    import importlib.util
+    import tempfile
+
+    from auromat_tpu_torch import draw
+    from auromat_tpu_torch.coordinates.constellations import figure_segments
+    from auromat_tpu_torch.coordinates.wcs import TanWcs
+    from auromat_tpu_torch.draw_helpers import (
+        polygons_from_mapping_or_collection)
+    from auromat_tpu_torch.io import fits, image
+    from auromat_tpu_torch.mapping.astrometry import create_mapping
+    from auromat_tpu_torch.mapping.spacecraft import resolve_camera_position
+    from auromat_tpu_torch.ops import _kernels, georegrid
+    from auromat_tpu_torch.resample import resample
+
+    dev = torch.device("cuda")
+    k1 = _kernels.GEOREGRID_BIN
+    header = fits.read_header(os.path.join(RES, "ISS030-E-102170_dc.wcs"))
+    pos, t, _ = resolve_camera_position(header)
+    m = create_mapping(header, iss_frame(np), pos, t, device=dev)
+
+    # -- the KML overlay: PIL's writer replaced by numpy for the phase ------
+    def save_npy(path, img):
+        with open(path, "wb") as f:
+            np.save(f, img)
+
+    real_save = image.save_image
+    image.save_image = save_npy
+    tmp = tempfile.TemporaryDirectory()
+    try:
+        def kml(device, name):
+            kml_path, png_path = draw.draw_kml_image(
+                os.path.join(tmp.name, f"{name}.kml"), m, device=device)
+            with open(kml_path) as f:
+                return f.read(), np.load(png_path)
+
+        with recorded((georegrid, "bin_rgbelev_from_indices")) as rec:
+            k1.launches = 0
+            text, rgba = kml(dev, "overlay")
+            torch.cuda.synchronize()
+            launches = k1.launches
+        ctext, crgba = kml("cpu", "overlay")
+        kml_ms = wall_ms(torch, lambda: kml(dev, "overlay"), N_WALL)
+        ckml_ms = wall_ms(torch, lambda: kml("cpu", "overlay"), N_WALL)
+    finally:
+        image.save_image = real_save
+        tmp.cleanup()
+    if launches < 1:
+        raise AssertionError("draw_kml_image on the card never launched K1")
+    if text != ctext or not np.array_equal(rgba, crgba) or \
+            rgba.dtype != np.uint8 or rgba.shape[-1] != 4:
+        raise AssertionError(f"KML overlay card vs CPU: text equal "
+                             f"{text == ctext}, RGBA {rgba.shape} equal "
+                             f"{np.array_equal(rgba, crgba)}")
+    n_cells = int((rgba[..., 3] == 255).sum())
+    print(f"[27] draw_kml_image (the PNG written with numpy: no PIL here) of "
+          f"the seeded 4256x2832 frame's mapping -> resample('mean', 100 "
+          f"arcsec) -> {rgba.shape[0]}x{rgba.shape[1]} RGBA, {n_cells} opaque "
+          f"cells: {launches} launch(es) of K1; card == CPU (KML text equal, "
+          f"RGBA equal); wall ms (median of {N_WALL}) card {kml_ms:.1f}, "
+          f"CPU {ckml_ms:.1f}; on {card}", flush=True)
+    on_kml = kernels_on_recorded(torch, rec, card, "[27]",
+                                 "the KML overlay's mapping")
+    del rec
+
+    # -- the horizon, RA/Dec and constellation numbers ----------------------
+    wcs = TanWcs(m.wcs_header)
+    segments = figure_segments()
+    helpers = {
+        "horizon": lambda d: draw._horizon_grid(m, device=d),
+        "ra_dec": lambda d: draw._ra_dec_grid(m, 64, device=d),
+        "constellations": lambda d: tuple(draw._constellation_segments(
+            wcs, segments, device=d).values()),
+    }
+    times = {}
+    for name, fn in helpers.items():
+        got, want = fn(dev), fn("cpu")
+        if len(got) != len(want):
+            raise AssertionError(f"{name}: {len(got)} != {len(want)} arrays")
+        err = 0.0
+        for g, w in zip(got, want):
+            g, w = g.astype(np.float64), w.astype(np.float64)
+            if g.shape != w.shape or not np.array_equal(np.isnan(g),
+                                                        np.isnan(w)):
+                raise AssertionError(f"{name} card vs CPU: shapes or NaNs")
+            ok = ~np.isnan(w)
+            err = max(err, float(np.max(np.abs(g[ok] - w[ok]), initial=0.0)))
+        if name == "horizon" and not all(np.array_equal(g, w)
+                                         for g, w in zip(got, want)):
+            raise AssertionError("horizon hit mask card != CPU")
+        if not err < 1e-9:
+            raise AssertionError(f"{name} card vs CPU: {err}")
+        times[name] = (wall_ms(torch, lambda: fn(dev), N_WALL),
+                       wall_ms(torch, lambda: fn("cpu"), N_WALL), err)
+    _, _, hit = helpers["horizon"]("cpu")
+    n_seg = sum(len(v) for v in segments.values())
+    print(f"[27] card == CPU: horizon hit mask of {hit.shape[0]}x"
+          f"{hit.shape[1]} strided pixels (equal, {hit.mean():.4f} on Earth), "
+          f"RA/Dec of every 64th pixel (max {times['ra_dec'][2]:.3g} deg), "
+          f"{n_seg} constellation segments' end points (max "
+          f"{times['constellations'][2]:.3g} px); wall ms (median of "
+          f"{N_WALL}) card / CPU: " + ", ".join(
+              f"{k} {v[0]:.2f} / {v[1]:.2f}" for k, v in times.items())
+          + f"; on {card}", flush=True)
+
+    # -- host times of the figure-side numbers; a figure without matplotlib -
+    r = resample(m, arcsec_per_px=100, method="mean", device=dev)
+    verts, colors = polygons_from_mapping_or_collection(r)
+    poly_ms = wall_ms(torch, lambda: polygons_from_mapping_or_collection(r),
+                      N_WALL)
+    bb = r.boundingBox.center
+    stereo_ms = wall_ms(torch, lambda: draw.stereographic_project(
+        verts[..., 1], verts[..., 0], bb.lat, bb.lon), N_WALL)
+    print(f"[27] host ms (median of {N_WALL}) on the {r.img.shape[0]}x"
+          f"{r.img.shape[1]} overlay mapping: polygons_from_mapping_or_"
+          f"collection {poly_ms:.2f} ({len(verts)} quads), "
+          f"stereographic_project {stereo_ms:.2f}", flush=True)
+    if importlib.util.find_spec("matplotlib") is None:
+        try:
+            draw.draw_plot(r)
+        except ImportError as e:
+            print(f"[27] draw_plot without matplotlib on this machine raised "
+                  f"ImportError: {e}", flush=True)
+        else:
+            raise AssertionError("draw_plot returned without matplotlib")
+    else:
+        fig = draw.draw_plot(r)
+        print(f"[27] matplotlib is installed here: draw_plot drew "
+              f"{len(fig.axes[0].collections)} collection(s)", flush=True)
+    return kernel_row("georegrid_bin (K1), KML overlay -> 100 arcsec grid "
+                      f"(draw_kml_image -> resample('mean') -> "
+                      f"{rgba.shape[0]}x{rgba.shape[1]})",
+                      "auromat_tpu_torch/ops/csrc/georegrid_bin.cu",
+                      "auromat_tpu/ops/georegrid.py:65", launches,
+                      *on_kml["K1"])
+
+
 def main():
     import torch
 
@@ -2628,6 +2786,7 @@ def main():
     rows += magnetic_generic_phases(torch, np, card)
     rows.append(iss_phases(torch, np, card, k1_ms))
     rows.append(solving_phase(torch, np, card))
+    rows.append(drawing_phase(torch, np, card))
 
     print(card)
     print(json.dumps({"kernels": rows}))

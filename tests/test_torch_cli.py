@@ -375,13 +375,51 @@ def test_port_modules_import_no_jax():
         "import auromat_tpu_torch.util.coroutine, auromat_tpu_torch.util.movie\n"
         "import auromat_tpu_torch.coordinates.constellations\n"
         "import auromat_tpu_torch.utils\n"
+        "import auromat_tpu_torch.draw, auromat_tpu_torch.draw_helpers\n"
+        "import auromat_tpu_torch.debug, auromat_tpu_torch.coastlines\n"
         "from auromat_tpu_torch.coordinates.constellations import bright_stars\n"
         "bright_stars()\n"
+        "auromat_tpu_torch.coastlines.land_rings()\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'auromat_tpu')]\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"))
     assert res.returncode == 0, res.stdout + res.stderr
+
+
+def test_drawing_layer_imports_without_matplotlib_or_pil():
+    """The card's machine has neither: the four drawing modules import, the
+    numeric helpers run, and a figure function raises the ImportError."""
+    res = run_port("-c", (
+        "import sys\n"
+        "sys.modules['matplotlib'] = sys.modules['PIL'] = None\n"
+        "import auromat_tpu_torch.draw as draw\n"
+        "import auromat_tpu_torch.draw_helpers, auromat_tpu_torch.debug\n"
+        "import auromat_tpu_torch.coastlines as c\n"
+        "x, y = draw.stereographic_project(*c.city_points()[:2], 60, -100)\n"
+        "assert x.shape == c.city_points()[0].shape\n"
+        "import datetime, numpy as np\n"
+        "from auromat_tpu_torch.mapping.mapping import Mapping\n"
+        "lat, lon = np.meshgrid(np.linspace(50, 52, 4), "
+        "np.linspace(-100, -96, 5), indexing='ij')\n"
+        "mid = lambda a: (a[1:, 1:] + a[:-1, :-1]) / 2\n"
+        "m = Mapping(lat, lon, mid(lat), mid(lon), np.full((3, 4), 30.0), "
+        "110.0, np.zeros((3, 4, 3), np.uint8), np.array([0.0, 0.0, 7000.0]), "
+        "datetime.datetime(2012, 1, 25), 'tiny')\n"
+        "try:\n"
+        "    draw.draw_plot(m)\n"
+        "except ImportError as e:\n"
+        "    print('ImportError', e)\n"
+        "else:\n"
+        "    sys.exit(2)\n"
+        "try:\n"
+        "    draw.draw_histogram([1.0, 2.0])\n"
+        "except ImportError:\n"
+        "    print('ImportError')\n"
+        "else:\n"
+        "    sys.exit(3)\n"))
+    assert res.returncode == 0, res.stdout + res.stderr
+    assert res.stdout.count("ImportError") == 2
 
 
 @pytest.mark.parametrize("argv", [

@@ -41,6 +41,7 @@ from auromat_tpu_torch.solving.spacecraft import (intersects_earth,
                                                   is_consistent)
 from auromat_tpu_torch.util.histogram import histogram2d, histogramdd
 from auromat_tpu_torch.resample import mosaic, resample, resample_mlat_mlt
+from auromat_tpu_torch import debug, draw
 
 RES = os.path.join(os.path.dirname(__file__), "resources")
 WCS = os.path.join(RES, "ISS030-E-102170_dc.wcs")
@@ -201,6 +202,16 @@ ENTRY_POINTS = {
     "fits.recompute_xyls_pixel_positions": lambda s, tmp:
         fits.recompute_xyls_pixel_positions(str(tmp / "stars.xyls"), WCS,
                                             WCS),
+    "draw.draw_kml_image": lambda s, tmp: draw.draw_kml_image(
+        str(tmp / "o.kml"), s.mapping),
+    "draw.draw_horizon": lambda s, tmp: draw.draw_horizon(s.mapping),
+    "draw.draw_ra_dec": lambda s, tmp: draw.draw_ra_dec(s.mapping),
+    "draw.draw_constellations": lambda s, tmp: draw.draw_constellations(
+        TanWcs(s.header)),
+    "debug.check_horizon": lambda s, tmp: debug.check_horizon(
+        str(tmp / "x.png"), WCS, out_path=str(tmp / "h.png")),
+    "debug.check_graticule": lambda s, tmp: debug.check_graticule(
+        str(tmp / "x.png"), WCS, out_path=str(tmp / "g.png")),
     **{f"resample method={m}": (lambda s, tmp, m=m: resample(
         s.mapping, px_per_deg=3, method=m)) for m in RESAMPLE_METHODS},
 }

@@ -62,6 +62,11 @@ only the port is installed:
   ``io.fits.get_catalog_stars('bright')`` and
   ``recompute_xyls_pixel_positions``, projected in float64 on the card,
   within 1e-9 px of the CPU's.
+* The drawing layer's numeric helpers on the card against the CPU, on a
+  512x384 mapping of the scaled calibration: the KML overlay (its
+  ``resample('mean')`` launches K1; KML text and RGBA equal), the horizon
+  hit mask (equal), the RA/Dec grid and the constellation end points
+  (within 1e-9).
 """
 
 import os
@@ -1005,3 +1010,49 @@ def test_fits_star_projections_gpu_match_cpu(cuda, tmp_path):
     for g, w in zip(got, want):
         assert g.dtype == np.float64 and g.shape == (40,)
         assert_allclose(g, w, rtol=0, atol=1e-9)
+
+
+@pytest.fixture
+def draw_mapping():
+    """The scaled ISS030-E-102170 calibration (512x384) over a seeded image,
+    built on the CPU (a host Mapping with its WCS header)."""
+    from auromat_tpu_torch.mapping.astrometry import create_mapping
+
+    header = _scaled_header()
+    pos = np.array(fits.get_shifted_spacecraft_position(header)[:3])
+    img = np.random.default_rng(10).integers(0, 256, (384, 512, 3), np.uint8)
+    return create_mapping(header, img, pos, fits.get_shifted_photo_time(header),
+                          identifier="draw", device="cpu")
+
+
+@pytest.mark.gpu
+def test_draw_numeric_helpers_gpu_match_cpu(cuda, draw_mapping):
+    """The numbers of the device-reaching figures on the card against the
+    CPU: the KML overlay (its resample launches K1) equal, the horizon hit
+    mask equal, the RA/Dec grid and the constellation end points within
+    1e-9."""
+    from auromat_tpu_torch import draw
+    from auromat_tpu_torch.coordinates.constellations import figure_segments
+
+    m = draw_mapping
+    before = _kernels.GEOREGRID_BIN.launches
+    rgba, kml = draw._kml_overlay("o.kml", m, 300, device=cuda)
+    assert _kernels.GEOREGRID_BIN.launches == before + 1
+    crgba, ckml = draw._kml_overlay("o.kml", m, 300, device="cpu")
+    assert kml == ckml and np.array_equal(rgba, crgba)
+    assert rgba.dtype == np.uint8 and (rgba[..., 3] == 255).sum() > 100
+    got, want = (draw._horizon_grid(m, device=d) for d in (cuda, "cpu"))
+    for g, w in zip(got, want):
+        assert np.array_equal(g, w)
+    assert 0 < got[2].mean() < 1
+    for g, w in zip(draw._ra_dec_grid(m, 16, device=cuda),
+                    draw._ra_dec_grid(m, 16, device="cpu")):
+        assert g.dtype == np.float64 and g.shape == (24, 32)
+        assert_allclose(g, w, rtol=0, atol=1e-9)
+    wcs = TanWcs(m.wcs_header)
+    data = figure_segments()
+    got = draw._constellation_segments(wcs, data, device=cuda)
+    want = draw._constellation_segments(wcs, data, device="cpu")
+    assert list(got) == list(want) == list(data)
+    for name in data:
+        assert_allclose(got[name], want[name], rtol=0, atol=1e-9)

@@ -18,7 +18,8 @@ package and the executed-reference goldens:
    (4256x2832 -> 336x495 at 25 px/deg, float64) against
    golden_resample_ISS030-E-102170_dc.npz with the gates of
    ``test_grid_alignment``, ``test_image_binning`` and
-   ``test_elevation_binning``.
+   ``test_elevation_binning``, and its polygons (``draw_helpers``) against
+   golden_polygons_ISS030-E-102170_dc.npz.
 
 The binning routes on the card are tested in tests/test_torch_gpu.py.
 """
@@ -351,6 +352,26 @@ def test_full_frame_elevation_binning(full_pair):
     both = ~np.isnan(elev) & ~np.isnan(ref)
     assert both.any()
     assert np.abs(elev[both] - ref[both]).max() < 1e-4
+
+
+def test_full_frame_polygons_match_golden(full_pair):
+    """The drawing layer's quad decomposition of the full-size composite
+    against the executed reference (golden_polygons_*.npz, the gate of
+    tests/test_resample_parity.py::test_polygon_decomposition_parity): the
+    same quads in the same order, vertices within 1e-9 deg, colours
+    exact."""
+    from auromat_tpu_torch.draw_helpers import (
+        polygons_from_mapping_or_collection)
+
+    _, _, r = full_pair
+    golden = np.load(os.path.join(RES, f"golden_polygons_{FULL}.npz"))
+    assert float(golden["altitude"]) == 110.0 and golden["px_per_deg"] == 25
+    verts, colors = polygons_from_mapping_or_collection(r)
+    ref_verts = golden["verts"][:, :, ::-1]  # (lat,lon) -> (lon,lat)
+    assert verts.shape == ref_verts.shape
+    assert np.abs(verts - ref_verts).max() < 1e-9
+    assert np.abs(colors[:, :3]
+                  - golden["colors"].astype(np.float64) / 255.0).max() == 0.0
 
 
 # -- devices and imports -----------------------------------------------------
