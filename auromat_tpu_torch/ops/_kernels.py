@@ -135,3 +135,12 @@ _K2_ARGS = [_P, _P, _P, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
 # per entry point
 REGRID_BIN = CudaKernel("regrid_bin.cu", "regrid_bin_launch", _K2_ARGS)
 REGRID_BIN_V1 = CudaKernel("regrid_bin.cu", "regrid_bin_launch", _K2_ARGS)
+
+# HOUGH_P (solving/masking.py::hough_lines_p): OpenCV's probabilistic Hough
+# transform, which the JAX package calls on the host (no TPU kernel); one
+# block of HOUGH_P_THREADS threads, one thread an angle
+HOUGH_P_THREADS = 192
+HOUGH_P = CudaKernel("hough_p.cu", "hough_p_launch",
+                     [_P, ctypes.c_int, _P, ctypes.c_int, ctypes.c_int, _P,
+                      ctypes.c_int, ctypes.c_int, _P, ctypes.c_int,
+                      ctypes.c_int, ctypes.c_int, _P, _P, _P])

@@ -2,7 +2,7 @@
 
 Isolates the star sky from Earth/spacecraft structures so astrometry.net
 only sees stars. Same pipeline as the reference (auromat/solving/
-masking.py:209-417), reimplemented around OpenCV + numpy block views:
+masking.py:209-417):
 
 1. binarize using the histogram's first spike + fudge (the starfield
    background is the darkest part of the image),
@@ -16,20 +16,45 @@ masking.py:209-417), reimplemented around OpenCV + numpy block views:
 6. estimate the noise sigma from the largest remaining starfield rectangle
    (Immerkaer).
 
-Counterpart of ``auromat_tpu.solving.masking``: the same numpy and OpenCV
-calls, cv2 imported inside each function that needs it (the card's
-machine has no cv2, so ``mask_starfield`` runs only where it is
-installed). An RGB array is turned into BGR by reversing its channels in
-numpy, which is what ``cv2.cvtColor(RGB2BGR)`` does to uint8, so
-``mask_starfield_rect`` on an array needs no cv2.
+Counterpart of ``auromat_tpu.solving.masking``, which calls OpenCV; this
+module needs none, and its masks are the JAX package's pixel for pixel.
+The pixel stages are torch on ``device`` in OpenCV's integer arithmetic:
+the gray conversion ``(9798 R + 19235 G + 3735 B + 16384) >> 15``, the
+histogram of ``calcHist(.., [256], [0, 255])`` (value 255 falls outside),
+the box blurs as reflect-101 sums of an int64 integral image rounded
+half up (``k*k`` is odd: no ties), the 3x3 median of a 0/255 image as
+"at least 5 of 9 set" with the edge replicated, the block reductions and
+the rasters of lines and polygons (``utils.line_pixels``,
+``utils.poly_fill_spans``) painted onto the image and reduced to blocks.
+
+The contours are host numpy. ``mask_starfield`` labels the hole-filled
+binary (8-connected foreground, holes 4-connected background, as
+``findContours(RETR_EXTERNAL)`` sees it: one label, one external contour)
+with ``scipy.ndimage`` and traces only the labels whose bounding box
+could hold a big contour (a contour's area is at most ``(w-1)(h-1)`` of
+its box), and those that could be the biggest.
+
+The probabilistic Hough transform is ``cv2.HoughLinesP``'s algorithm:
+set pixels visited in the order of OpenCV's RNG (seed 2^64-1, the visit
+order fixed by the count alone), a float32 vote ``rint(x c + y s)`` per
+angle (``theta`` rounded to float32 first, as OpenCV's signature does),
+the first maximum, the 16-bit fixed-point walks. On a CUDA tensor
+``hough_lines_p`` launches the kernel ``ops/csrc/hough_p.cu``
+(``ops._kernels.HOUGH_P``); on a CPU tensor it runs ``_hough_p_plain``,
+the same algorithm sequentially in numpy. Both give OpenCV's lines in
+OpenCV's order.
 """
 
 import math
-import os
 
 import numpy as np
+import torch
 
 from auromat_tpu_torch.solving.noise import estimate_noise_level
+from auromat_tpu_torch.utils import (_contour_area, _external_borders,
+                                     bounding_rect, contour_approx_simple,
+                                     line_pixels, min_area_rect_axes,
+                                     poly_fill_spans, trace_outer_borders)
 
 
 def view_as_blocks(arr, block_shape):
@@ -52,35 +77,139 @@ def _block_shape(shape):
     return shape[0] // blocks_y, shape[1] // blocks_x
 
 
-def binarize_starfield(imgray, fudge=20, max_threshold=150):
-    """Threshold = histogram first spike + fudge.
+def _blocks_any(t, block):
+    """(h, w) tensor -> (h//bh, w//bw) bool: any element of a block set."""
+    bh, bw = block
+    h, w = t.shape
+    return t.reshape(h // bh, bh, w // bw, bw).any(dim=3).any(dim=1)
 
-    :returns: (binary, hist, threshold, first_spike)
-    """
-    import cv2 as cv
 
-    hist = cv.calcHist([imgray], [0], None, [256], [0, 255]).reshape(256)
+def _clear_blocks(mask, bad, block):
+    """mask[block] = False in place for every True of ``bad``."""
+    bh, bw = block
+    h, w = mask.shape
+    mask.view(h // bh, bh, w // bw, bw).logical_and_(~bad[:, None, :, None])
+
+
+def _as_tensor(a):
+    return a if torch.is_tensor(a) else torch.from_numpy(np.ascontiguousarray(a))
+
+
+def _gray(im, channel):
+    """(h, w) uint8 gray of an (h, w, 3) uint8 RGB tensor: OpenCV's
+    ``COLOR_BGR2GRAY`` in 15-bit fixed point, or one channel."""
+    if channel is None:
+        r, g, b = (im[..., i].to(torch.int32) for i in range(3))
+        return ((9798 * r + 19235 * g + 3735 * b + 16384) >> 15).to(torch.uint8)
+    idx = {"r": 0, "g": 1, "b": 2}.get(str(channel).lower())
+    if idx is None:
+        raise ValueError(f"channel is {channel!r} but must be R,G,B or None")
+    return im[..., idx].contiguous()
+
+
+def _reflect101(n, pad, device):
+    """Indices of 0..n-1 padded by ``pad`` on each side, reflect-101
+    (OpenCV's default border: ``gfedcb|abcdefgh|gfedcba``)."""
+    i = torch.arange(-pad, n + pad, device=device).abs()
+    return torch.where(i >= n, 2 * (n - 1) - i, i)
+
+
+def _box_blur(img, k):
+    """``cv2.blur(img, (k, k))`` of a uint8 tensor: reflect-101 border, the
+    k*k window sum from an int64 integral image, rounded half up (k odd)."""
+    h, w = img.shape
+    p = k // 2
+    padded = img[_reflect101(h, p, img.device)][:, _reflect101(w, p, img.device)]
+    ii = torch.zeros((h + 2 * p + 1, w + 2 * p + 1), dtype=torch.int64,
+                     device=img.device)
+    ii[1:, 1:] = padded.to(torch.int64).cumsum(0).cumsum(1)
+    s = ii[k:, k:] - ii[:-k, k:] - ii[k:, :-k] + ii[:-k, :-k]
+    return ((2 * s + k * k) // (2 * k * k)).to(torch.uint8)
+
+
+def _median3_binary(binary):
+    """``cv2.medianBlur(binary, 3)`` of a 0/255 uint8 tensor: 255 where at
+    least 5 of the 3x3 neighbourhood are set (edges replicated)."""
+    h, w = binary.shape
+    rows = torch.arange(-1, h + 1, device=binary.device).clamp(0, h - 1)
+    cols = torch.arange(-1, w + 1, device=binary.device).clamp(0, w - 1)
+    s = (binary != 0)[rows][:, cols].to(torch.int32)
+    n = sum(s[dy:dy + h, dx:dx + w] for dy in range(3) for dx in range(3))
+    return (n >= 5).to(torch.uint8) * 255
+
+
+def _paint(shape, spans, pixels, device):
+    """(h, w) bool tensor on ``device``: the (rows, first, last) spans and
+    the (xs, ys) pixels set, clipped to the image."""
+    h, w = shape
+    (rows, first, last), (xs, ys) = spans, pixels
+    first, last = np.maximum(first, 0), np.minimum(last, w - 1)
+    ok = (rows >= 0) & (rows < h) & (first <= last)
+    rows, first, last = rows[ok], first[ok], last[ok]
+    ok = (xs >= 0) & (xs < w) & (ys >= 0) & (ys < h)
+    xs, ys = xs[ok], ys[ok]
+    diff = torch.zeros(h * (w + 1), dtype=torch.int32, device=device)
+    ones = torch.ones(len(rows), dtype=torch.int32, device=device)
+    diff.index_add_(0, torch.from_numpy(rows * (w + 1) + first).to(device), ones)
+    diff.index_add_(0, torch.from_numpy(rows * (w + 1) + last + 1).to(device),
+                    -ones)
+    painted = diff.view(h, w + 1).cumsum(1)[:, :w] > 0
+    painted.view(-1)[torch.from_numpy(ys * w + xs).to(device)] = True
+    return painted
+
+
+def _fill_polys(shape, polys, device):
+    """``cv2.fillPoly`` of integer polygons as an (h, w) bool tensor."""
+    return _paint(shape, *poly_fill_spans(polys), device)
+
+
+def _draw_lines(shape, lines, device):
+    """``cv2.line`` of each (x0, y0, x1, y1) as an (h, w) bool tensor."""
+    z = np.zeros(0, dtype=np.int64)
+    pix = [line_pixels(*ln) for ln in lines]
+    xs = np.concatenate([p[0] for p in pix]) if pix else z
+    ys = np.concatenate([p[1] for p in pix]) if pix else z
+    return _paint(shape, (z, z, z), (xs, ys), device)
+
+
+def _binarize(gray, fudge, max_threshold):
+    """(binary uint8 tensor, float32 histogram, threshold, first spike)."""
+    hist = torch.bincount(gray.reshape(-1).to(torch.int64), minlength=256)
+    hist = hist.cpu().numpy().astype(np.float32)
+    hist[255] = 0  # calcHist's range [0, 255) leaves 255 out
     hist[1:-1] = (hist[:-2] + hist[1:-1] + hist[2:]) / 3  # light smoothing
     hist_diff = hist[1:] - hist[:-1]
     first_spike = int(np.argmax(hist_diff < 0))
     threshold = min(first_spike + fudge, max_threshold)
-    _, binary = cv.threshold(imgray, threshold, 255, cv.THRESH_BINARY)
+    binary = (gray > threshold).to(torch.uint8) * 255
     return binary, hist, threshold, first_spike
+
+
+def binarize_starfield(imgray, fudge=20, max_threshold=150):
+    """Threshold = histogram first spike + fudge.
+
+    :param imgray: (h, w) uint8 array, or tensor (computed on its device)
+    :returns: (binary, hist, threshold, first_spike); ``binary`` is an
+        array for an array and a tensor for a tensor
+    """
+    binary, hist, threshold, spike = _binarize(_as_tensor(imgray), fudge,
+                                               max_threshold)
+    if not torch.is_tensor(imgray):
+        binary = binary.numpy()
+    return binary, hist, threshold, spike
 
 
 def categorize_contours(binary, big_area_ratio=0.000013, long_ratio=5.0):
     """:returns: (contours, areas, is_big, is_small_long, is_small_short)"""
-    import cv2 as cv
-
+    binary = np.asarray(binary.cpu() if torch.is_tensor(binary) else binary)
     padded = np.zeros((binary.shape[0] + 2, binary.shape[1] + 2), dtype=np.uint8)
     padded[1:-1, 1:-1] = binary
-    contours, _ = cv.findContours(padded, cv.RETR_EXTERNAL, cv.CHAIN_APPROX_SIMPLE)
-    contours = [c - 1 for c in contours]
+    contours = [contour_approx_simple(c) - 1 for c in _external_borders(padded)]
     if not contours:
         z = np.zeros(0, dtype=bool)
         return contours, np.zeros(0), z, z, z
-    areas = np.array([cv.contourArea(c) for c in contours])
-    rect_axes = np.array([cv.minAreaRect(c)[1] for c in contours])
+    areas = np.array([_contour_area(c) for c in contours])
+    rect_axes = np.array([min_area_rect_axes(c) for c in contours])
     big_area = big_area_ratio * binary.shape[0] * binary.shape[1]
     is_big = areas > int(big_area)
     with np.errstate(divide="ignore", invalid="ignore"):
@@ -91,43 +220,298 @@ def categorize_contours(binary, big_area_ratio=0.000013, long_ratio=5.0):
     return contours, areas, is_big, is_small & is_long, is_small & ~is_long
 
 
-def _mask_from_contours(shape, contours, areas, offending, blacken_lower_part):
-    import cv2 as cv
+def _big_contours(binary, big_area_ratio=0.000013):
+    """The external contours of ``binary`` (host uint8) that
+    ``_contour_mask`` reads, in ``categorize_contours``' order:
+    (contours, areas, is_big) of every contour that is big and of every
+    one that could be the biggest. The rest are not traced: a label's
+    contour has an area of at most (w-1)(h-1) of its bounding box."""
+    from scipy import ndimage
 
-    mask = np.ones(shape, dtype=bool)
-    bh, bw = _block_shape(shape)
+    h, w = binary.shape
+    filled = ndimage.binary_fill_holes(binary != 0)
+    labels, _ = ndimage.label(filled, structure=np.ones((3, 3), dtype=bool))
+    boxes = ndimage.find_objects(labels)
+    bound = np.array([(b[0].stop - b[0].start - 1) * (b[1].stop - b[1].start - 1)
+                      for b in boxes], dtype=np.int64)
+    big = int(big_area_ratio * h * w)
+    todo = list(np.flatnonzero(bound > big))  # every possibly big label
+    rest = [i for i in np.argsort(-bound, kind="stable") if bound[i] <= big]
+    padded = np.zeros((h + 2, w + 2), dtype=np.uint8)
+    padded[1:-1, 1:-1] = binary
+
+    traced = {}
+
+    def trace(labs):
+        starts = []
+        for i in labs:
+            ys, xs = boxes[i]
+            row = labels[ys.start, xs]
+            x = xs.start + int(np.argmax(row == i + 1))
+            starts.append((ys.start + 1) * (w + 2) + x + 1)
+        for i, s, c in zip(labs, starts, trace_outer_borders(padded, starts)):
+            c = contour_approx_simple(c) - 1
+            traced[i] = (s, c, _contour_area(c))
+
+    trace(todo)
+    best = max((a for _, _, a in traced.values()), default=-1.0)
+    for i in rest:  # labels that could still be (or tie) the biggest
+        if bound[i] < best:
+            break
+        trace([i])
+        best = max(best, traced[i][2])
+    # OpenCV lists the contours in reverse raster order of their starts
+    keys = sorted(traced, key=lambda i: -traced[i][0])
+    contours = [traced[i][1] for i in keys]
+    areas = np.array([traced[i][2] for i in keys])
+    return contours, areas, areas > big
+
+
+def _contour_mask(shape, contours, areas, offending, blacken_lower_part,
+                  device):
+    """The starfield mask (bool tensor on ``device``) of step 1."""
+    mask = torch.ones(shape, dtype=torch.bool, device=device)
+    block = _block_shape(shape)
+    bh = block[0]
 
     if blacken_lower_part and len(contours):
         # if the biggest contour sits in the lower part it is likely Earth:
         # blacken from its top edge down (else from mid-image)
         biggest = contours[int(np.argmax(areas))]
-        _, y, _, h = cv.boundingRect(biggest)
+        _, y, _, h = bounding_rect(biggest)
         from_y = y if (y > shape[0] / 3 and y + h > shape[0] / 2) else shape[0] // 2
         from_block = int(math.ceil(from_y / bh) * bh)
         mask[from_block:] = False
 
     if np.any(offending):
-        filled = np.zeros(shape, dtype=np.uint8)
-        cv.fillPoly(filled, [contours[i] for i in np.flatnonzero(offending)], 255)
-        bad_blocks = (view_as_blocks(filled, (bh, bw)) == 255).any(axis=(-1, -2))
-        bv = view_as_blocks(mask, (bh, bw))
-        bv[bad_blocks] = False
+        filled = _fill_polys(shape, [contours[i] for i in np.flatnonzero(offending)],
+                             device)
+        _clear_blocks(mask, _blocks_any(filled, block), block)
     return mask
+
+
+def _mask_from_contours(shape, contours, areas, offending, blacken_lower_part):
+    return _contour_mask(shape, contours, areas, offending, blacken_lower_part,
+                         "cpu").numpy()
+
+
+def _adaptive_threshold(image, mask, max_value, size, c):
+    """``masked_adaptive_threshold`` of tensors on their device."""
+    m8 = mask.to(torch.uint8) * 255
+    conv = _box_blur(image, size).to(torch.float64)
+    neighbours = _box_blur(m8, size).to(torch.float64)
+    diff = image.to(torch.float64) - 255 * (conv / neighbours)
+    return ((diff > -c) & mask).to(torch.uint8) * max_value
 
 
 def masked_adaptive_threshold(image, mask, max_value, size, c):
     """Adaptive threshold restricted to unmasked pixels (image must be black
     under the mask). Reference masking.py:192-207."""
-    import cv2 as cv
+    out = _adaptive_threshold(_as_tensor(image), _as_tensor(mask), max_value,
+                              size, c)
+    return out if torch.is_tensor(image) else out.numpy()
 
-    m8 = mask.astype(np.uint8) * 255
-    conv = cv.blur(image, (size, size)).astype(float)
-    neighbours = cv.blur(m8, (size, size)).astype(float)
-    with np.errstate(invalid="ignore"):
-        diff = image - 255 * (conv / neighbours)
-    binary = np.zeros_like(image, dtype=np.uint8)
-    binary[(diff > -c) & mask] = max_value
-    return binary
+
+_RNG_COEFF = 4164903690  # OpenCV's RNG: multiply with carry, CV_RNG_COEFF
+_HOUGH_SHIFT = 16  # fixed-point fraction bits of the walks
+
+
+def _hough_order(count):
+    """The order in which ``HoughLinesP`` visits ``count`` set pixels, as
+    indices into their raster-order list: OpenCV's RNG (state 2^64-1,
+    ``state = (state & 0xffffffff) * 4164903690 + (state >> 32)``) draws
+    ``idx = (state & 0xffffffff) % remaining``; the drawn pixel is
+    replaced by the last remaining one. It depends on ``count`` only."""
+    state = (1 << 64) - 1
+    m32 = 0xFFFFFFFF
+    perm = list(range(count))
+    out = [0] * count
+    for k, c in enumerate(range(count, 0, -1)):
+        state = (state & m32) * _RNG_COEFF + (state >> 32)
+        idx = (state & m32) % c
+        out[k] = perm[idx]
+        perm[idx] = perm[c - 1]
+    return np.array(out, dtype=np.int64)
+
+
+def _hough_setup(shape, rho, theta):
+    """(numangle, numrho, float32 cos table, float32 sin table) as OpenCV
+    computes them: ``theta`` and ``1/rho`` in float32, each entry
+    ``(float)(cos(n * theta) / rho)`` in double before the rounding."""
+    h, w = shape
+    theta = float(np.float32(theta))
+    irho = float(np.float32(1.0) / np.float32(rho))
+    numangle = int(math.floor(math.pi / theta)) + 1
+    if numangle > 1 and abs(math.pi - (numangle - 1) * theta) < theta / 2:
+        numangle -= 1
+    numrho = int(np.rint(((w + h) * 2 + 1) / float(np.float32(rho))))
+    cos_t = np.array([math.cos(n * theta) * irho for n in range(numangle)],
+                     dtype=np.float32)
+    sin_t = np.array([math.sin(n * theta) * irho for n in range(numangle)],
+                     dtype=np.float32)
+    return numangle, numrho, cos_t, sin_t
+
+
+def _walk_step(a, b):
+    """(xflag, dx0, dy0) of a walk along the direction (a, b) = (-sin,
+    cos) in OpenCV's float32 arithmetic: the major axis steps by 1, the
+    minor one by ``rint(minor * 65536 / |major|)`` (16-bit fixed point);
+    ``xflag`` when x is the major axis."""
+    one = np.float32(1 << _HOUGH_SHIFT)
+    if abs(a) > abs(b):
+        return True, (1 if a > 0 else -1), int(np.rint(np.float32(b * one) / abs(a)))
+    return False, int(np.rint(np.float32(a * one) / abs(b))), (1 if b > 0 else -1)
+
+
+def _hough_p_plain(binary, rho, theta, threshold, line_length, line_gap):
+    """``cv2.HoughLinesP`` of a (h, w) uint8 array, sequentially on the
+    host: (n, 4) int32 lines (x0, y0, x1, y1) in OpenCV's order. The plain
+    version of ``ops/csrc/hough_p.cu``, in the same arithmetic: the votes
+    of a chunk of pixels are computed at once in float32 numpy, the rest
+    (the vote, the walks) pixel by pixel."""
+    binary = np.asarray(binary)
+    h, w = binary.shape
+    numangle, numrho, cos_t, sin_t = _hough_setup((h, w), rho, theta)
+    ys, xs = np.nonzero(binary)
+    order = _hough_order(len(xs))
+    vx, vy = xs[order], ys[order]
+    mask = bytearray((binary != 0).astype(np.uint8).tobytes())
+    acc = np.zeros(numangle * numrho, dtype=np.int32)
+    base = np.arange(numangle, dtype=np.int64) * numrho + (numrho - 1) // 2
+    steps = [_walk_step(-sin_t[n], cos_t[n]) for n in range(numangle)]
+    shift, half = _HOUGH_SHIFT, 1 << (_HOUGH_SHIFT - 1)
+
+    def bins(x, y):  # (n, numangle) flat accumulator indices: x c + y s
+        return base + np.rint(x.astype(np.float32)[:, None] * cos_t
+                              + y.astype(np.float32)[:, None] * sin_t
+                              ).astype(np.int64)
+
+    def walk(px, py, dx, dy, xflag):  # the last set pixel before a long gap
+        gap, end = 0, None
+        while True:
+            j1, i1 = (px, py >> shift) if xflag else (px >> shift, py)
+            if j1 < 0 or j1 >= w or i1 < 0 or i1 >= h:
+                return end
+            if mask[i1 * w + j1]:
+                gap, end = 0, (j1, i1)
+            else:
+                gap += 1
+                if gap > line_gap:
+                    return end
+            px += dx
+            py += dy
+
+    def clear(px, py, dx, dy, xflag, end, cleared):  # up to ``end``
+        while True:
+            j1, i1 = (px, py >> shift) if xflag else (px >> shift, py)
+            k = i1 * w + j1
+            if mask[k]:
+                cleared.append((j1, i1))
+                mask[k] = 0
+            if (j1, i1) == end:
+                return
+            px += dx
+            py += dy
+
+    lines = []
+    chunk = 1 << 15
+    for c0 in range(0, len(vx), chunk):
+        cx, cy = vx[c0:c0 + chunk], vy[c0:c0 + chunk]
+        cbins = bins(cx, cy)
+        for j, (x, y) in enumerate(zip(cx.tolist(), cy.tolist())):
+            if not mask[y * w + x]:
+                continue  # taken by an earlier line
+            idx = cbins[j]
+            votes = acc[idx]
+            votes += 1
+            acc[idx] = votes
+            if votes.max() < threshold:
+                continue
+            xflag, dx0, dy0 = steps[int(votes.argmax())]  # the first maximum
+            x0, y0 = (x, (y << shift) + half) if xflag else ((x << shift) + half, y)
+            ends = (walk(x0, y0, dx0, dy0, xflag), walk(x0, y0, -dx0, -dy0, xflag))
+            good = (abs(ends[1][0] - ends[0][0]) >= line_length or
+                    abs(ends[1][1] - ends[0][1]) >= line_length)
+            cleared = []
+            clear(x0, y0, dx0, dy0, xflag, ends[0], cleared)
+            clear(x0, y0, -dx0, -dy0, xflag, ends[1], cleared)
+            if good:  # a kept line gives its pixels' votes back
+                cl = np.array(cleared, dtype=np.int64)
+                np.subtract.at(acc, bins(cl[:, 0], cl[:, 1]).ravel(), 1)
+                lines.append((*ends[0], *ends[1]))
+    return np.array(lines, dtype=np.int32).reshape(-1, 4)
+
+
+def hough_lines_p(binary, rho, theta, threshold, min_line_length, max_line_gap):
+    """``cv2.HoughLinesP(binary, rho, theta, threshold, minLineLength=...,
+    maxLineGap=...)`` of a (h, w) uint8 tensor: (n, 4) int32 numpy lines
+    in OpenCV's order. On a CUDA tensor it launches ``HOUGH_P``
+    (``ops/csrc/hough_p.cu``), on a CPU tensor it runs ``_hough_p_plain``."""
+    if binary.dim() != 2 or binary.dtype != torch.uint8:
+        raise ValueError(f"expected an (h, w) uint8 tensor, got "
+                         f"{tuple(binary.shape)} {binary.dtype}")
+    if binary.device.type == "cpu":
+        return _hough_p_plain(binary.numpy(), rho, theta, threshold,
+                              min_line_length, max_line_gap)
+    if binary.device.type != "cuda":
+        raise ValueError(f"hough_lines_p runs on cpu or cuda, not "
+                         f"{binary.device}")
+    return _hough_p_cuda(binary, rho, theta, threshold, min_line_length,
+                         max_line_gap)
+
+
+def _hough_p_cuda(binary, rho, theta, threshold, line_length, line_gap):
+    """``hough_lines_p`` on the card: one launch of ``HOUGH_P``."""
+    args = _hough_p_args(binary, rho, theta, threshold, line_length, line_gap)
+    lines, n_lines = _hough_p_launch(args)
+    return lines[: int(n_lines.item())].cpu().numpy()
+
+
+def _hough_p_args(binary, rho, theta, threshold, line_length, line_gap):
+    """The kernel's arguments as a dict: the visited (x, y) pairs in
+    OpenCV's order (the order drawn on the host), the mask the walks clear,
+    the zeroed accumulator, the float32 trig table, the outputs."""
+    from auromat_tpu_torch.ops import _kernels
+
+    h, w = binary.shape
+    dev = binary.device
+    numangle, numrho, cos_t, sin_t = _hough_setup((h, w), rho, theta)
+    if numangle > _kernels.HOUGH_P_THREADS:
+        raise ValueError(f"hough_lines_p on the card takes at most "
+                         f"{_kernels.HOUGH_P_THREADS} angles, not {numangle}")
+    binary = binary.contiguous()
+    nz = torch.nonzero(binary)  # raster order, as OpenCV collects them
+    count = nz.shape[0]
+    order = torch.from_numpy(_hough_order(count)).to(dev)
+    return {"pts": nz[order].flip(1).to(torch.int32).contiguous(),
+            "count": count, "mask": (binary != 0).to(torch.uint8),
+            "width": w, "height": h,
+            "acc": torch.zeros(numangle * numrho, dtype=torch.int32, device=dev),
+            "numangle": numangle, "numrho": numrho,
+            "trig": torch.from_numpy(np.concatenate([cos_t, sin_t])).to(dev),
+            "threshold": int(threshold), "line_length": int(line_length),
+            "line_gap": int(line_gap),
+            "lines": torch.empty((max(count, 1), 4), dtype=torch.int32,
+                                 device=dev),
+            "n_lines": torch.zeros(1, dtype=torch.int32, device=dev)}
+
+
+def _hough_p_launch(a):
+    """Launch ``HOUGH_P`` on ``_hough_p_args``' dict (its mask and
+    accumulator are changed); returns (lines, n_lines) on the card."""
+    import ctypes
+
+    from auromat_tpu_torch.ops import _kernels
+
+    P = ctypes.c_void_p
+    _kernels.HOUGH_P(P(a["pts"].data_ptr()), a["count"],
+                     P(a["mask"].data_ptr()), a["width"], a["height"],
+                     P(a["acc"].data_ptr()), a["numangle"], a["numrho"],
+                     P(a["trig"].data_ptr()), a["threshold"],
+                     a["line_length"], a["line_gap"],
+                     P(a["lines"].data_ptr()), P(a["n_lines"].data_ptr()),
+                     P(torch.cuda.current_stream(a["mask"].device).cuda_stream))
+    return a["lines"], a["n_lines"]
 
 
 def _max_size_rectangle(mat):
@@ -157,13 +541,13 @@ def mask_starfield_rect(image, top_left, bottom_right):
 
     :returns: (mask, sigma)
     """
-    im = _load_bgr(image)
+    im = _load_rgb(image)
     h, w = im.shape[:2]
     x1, y1 = top_left
     x2, y2 = bottom_right
     mask = np.zeros((h, w), dtype=bool)
     mask[y1 : y2 + 1, x1 : x2 + 1] = True
-    sigma = _scale_sigma(estimate_noise_level(im[y1 : y2 + 1, x1 : x2 + 1, 0]))
+    sigma = _scale_sigma(estimate_noise_level(im[y1 : y2 + 1, x1 : x2 + 1, 2]))
     return mask, sigma
 
 
@@ -172,93 +556,104 @@ def _scale_sigma(sigma):
     return max(0.9, sigma * 2.5)
 
 
-def _load_bgr(image):
-    if isinstance(image, np.ndarray):
-        image = np.require(image, np.uint8)
-        if image.ndim != 3 or image.shape[2] != 3:
-            raise ValueError(f"expected an (h, w, 3) RGB image, got shape "
-                             f"{image.shape}")
-        return np.ascontiguousarray(image[..., ::-1])
-    import cv2 as cv
+def _load_rgb(image):
+    """(h, w, 3) uint8 RGB of an array or of a path (``io.image``'s
+    decoder; a 16-bit image keeps its high byte, as ``cv.imread`` does)."""
+    if not isinstance(image, np.ndarray):
+        import os
 
-    im = cv.imread(image)
-    if im is None:
-        raise IOError(f"cannot read image {image}")
-    return im
+        from auromat_tpu_torch.io.image import load_image
+
+        if not os.path.isfile(image):
+            raise IOError(f"cannot read image {image}")
+        image = load_image(image)
+        if image.dtype == np.uint16:
+            image = (image >> 8).astype(np.uint8)
+    image = np.require(image, np.uint8)
+    if image.ndim != 3 or image.shape[2] != 3:
+        raise ValueError(f"expected an (h, w, 3) RGB image, got shape "
+                         f"{image.shape}")
+    return image
+
+
+def _dark_area_mask(imgray, blacken_lower_part):
+    """Step 1 of ``mask_starfield`` on a uint8 gray tensor: the dark-area
+    candidate mask (bool tensor), raising the threshold while the
+    starfield area stays implausibly small (reference masking.py:265-289);
+    returns (mask, first spike of the last histogram)."""
+    fudge = 20
+    while True:
+        binary, _, _, first_spike = _binarize(imgray, fudge, 150)
+        contours, areas, is_big = _big_contours(binary.cpu().numpy())
+        mask = _contour_mask(tuple(imgray.shape), contours, areas, is_big,
+                             blacken_lower_part, imgray.device)
+        if mask.float().mean().item() >= 0.1 or fudge > 100:
+            return mask, first_spike
+        fudge += 20
+
+
+def _line_candidates(imgray, mask):
+    """The Hough transform's input in ``mask_starfield``: the masked
+    adaptive threshold (89x89, C = -1) of the masked gray tensor, after a
+    3x3 median."""
+    return _median3_binary(_adaptive_threshold(imgray, mask, 255, 89, -1))
 
 
 def mask_starfield(image, channel=None, blacken_lower_part=True,
-                   ignore_very_dark=True):
+                   ignore_very_dark=True, device="cuda"):
     """Automatically mask the star-sky region of an image.
 
     :param image: path or (h, w, 3) RGB uint8 array
     :param channel: 'R', 'G', 'B' or None (grayscale combine)
+    :param device: where the pixel stages and the Hough transform run
+        (the card by default; raises if it is CUDA and there is none)
     :returns: (mask (h, w) bool — True = starfield, sigma)
     """
-    import cv2 as cv
-    from scipy.signal import convolve2d
+    from auromat_tpu_torch.ops.georef import compute_device
 
-    im = _load_bgr(image)
-    if channel is None:
-        imgray = cv.cvtColor(im, cv.COLOR_BGR2GRAY)
-    else:
-        idx = {"r": 2, "g": 1, "b": 0}.get(str(channel).lower())
-        if idx is None:
-            raise ValueError(f"channel is {channel!r} but must be R,G,B or None")
-        imgray = im[:, :, idx]
-    imgray = np.require(imgray, np.uint8, "C")
-    shape = imgray.shape
+    device = compute_device(device)
+    im = torch.from_numpy(np.array(_load_rgb(image))).to(device)
+    imgray = _gray(im, channel)
+    del im
+    shape = tuple(imgray.shape)
+    block = _block_shape(shape)
 
-    # step 1: dark-area candidate mask, raising the threshold while the
-    # starfield area stays implausibly small (reference masking.py:265-289)
-    fudge = 20
-    while True:
-        binary, hist, threshold, first_spike = binarize_starfield(imgray, fudge)
-        contours, areas, is_big, is_small_long, _ = categorize_contours(binary)
-        mask = _mask_from_contours(shape, contours, areas, is_big, blacken_lower_part)
-        ratio = mask.mean()
-        if ratio >= 0.1 or fudge > 100:
-            break
-        fudge += 20
-
-    imgray = imgray.copy()
-    imgray[~mask] = 0
-    bh, bw = _block_shape(shape)
-    bv_mask = view_as_blocks(mask, (bh, bw))
+    mask, first_spike = _dark_area_mask(imgray, blacken_lower_part)
+    imgray = imgray * mask
 
     # step 2a: Hough lines over a masked adaptive threshold
-    binary = masked_adaptive_threshold(imgray, mask, 255, 89, -1)
-    binary = cv.medianBlur(binary, 3)
-    lines = cv.HoughLinesP(binary.copy(), 1, math.pi / 180, 200,
-                           minLineLength=100, maxLineGap=4)
-    if lines is not None:
-        filled = np.zeros(shape, dtype=np.uint8)
-        for line in lines.reshape(-1, 4):
-            cv.line(filled, (line[0], line[1]), (line[2], line[3]), 255)
-        bad = (view_as_blocks(filled, (bh, bw)) == 255).any(axis=(-1, -2))
-        bv_mask[bad] = False
+    binary = _line_candidates(imgray, mask)
+    lines = hough_lines_p(binary, 1, math.pi / 180, 200, 100, 4)
+    del binary
+    if len(lines):
+        drawn = _draw_lines(shape, lines, device)
+        _clear_blocks(mask, _blocks_any(drawn, block), block)
 
     # step 2b: mask blocks that are essentially pure black
     if ignore_very_dark:
-        cutoff = cv.blur(imgray.copy(), (3, 3))
+        cutoff = _box_blur(imgray, 3)
         cutoff_threshold = max(30, first_spike + 20)
-        cutoff[cutoff < cutoff_threshold] = 0
-        pure_black = (view_as_blocks(cutoff, (bh, bw)) == 0).all(axis=(-1, -2))
-        bv_mask[pure_black] = False
+        _clear_blocks(mask, ~_blocks_any(cutoff >= cutoff_threshold, block),
+                      block)
 
     # step 3: drop starfield blocks with no starfield neighbours
-    is_star_block = bv_mask.all(axis=(-1, -2))
-    kernel = np.ones((3, 3), dtype=int)
-    kernel[1, 1] = 0
-    neighbours = convolve2d(is_star_block.astype(int), kernel, mode="same")
-    bv_mask[is_star_block & (neighbours == 0)] = False
+    def star_blocks():
+        return ~_blocks_any(~mask, block)
+
+    is_star = star_blocks()
+    s = torch.nn.functional.pad(is_star.to(torch.int32), (1, 1, 1, 1))
+    nby, nbx = is_star.shape
+    neighbours = sum(s[dy:dy + nby, dx:dx + nbx] for dy in range(3)
+                     for dx in range(3)) - is_star.to(torch.int32)
+    _clear_blocks(mask, is_star & (neighbours == 0), block)
 
     # noise sigma from the largest remaining starfield rectangle
-    is_star_block = bv_mask.all(axis=(-1, -2))
-    if is_star_block.any():
-        (ry, rx), (rh, rw) = _max_size_rectangle(is_star_block)
+    is_star = star_blocks().cpu().numpy()
+    bh, bw = block
+    if is_star.any():
+        (ry, rx), (rh, rw) = _max_size_rectangle(is_star)
         rect = imgray[ry * bh : (ry + rh) * bh, rx * bw : (rx + rw) * bw]
-        sigma = _scale_sigma(estimate_noise_level(rect))
+        sigma = _scale_sigma(estimate_noise_level(rect.cpu().numpy()))
     else:
-        sigma = _scale_sigma(estimate_noise_level(imgray))
-    return mask, sigma
+        sigma = _scale_sigma(estimate_noise_level(imgray.cpu().numpy()))
+    return mask.cpu().numpy(), sigma

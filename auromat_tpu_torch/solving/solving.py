@@ -10,7 +10,8 @@ The astrometry.net binaries are external dependencies (as in the reference,
 SURVEY.md 2b); all invocation logic is testable against a stand-in binary.
 Counterpart of ``auromat_tpu.solving.solving``, over the port's ``io.fits``,
 ``io.image`` (PIL, imported where an image is read or written) and
-``solving.masking`` (cv2, imported where it masks).
+``solving.masking`` (no OpenCV: the masking's pixel stages and its Hough
+transform run on ``device``, the card by default).
 """
 
 import os
@@ -118,10 +119,12 @@ def run_with_timeout(cmd, timeout):
 
 def solve_image(image_path, wcs_path=None, mask=True, channel=None,
                 timeout=600, scale_range=None, solve_field="solve-field",
-                strategies=None, work_dir=None, verbose=False):
+                strategies=None, work_dir=None, verbose=False, device="cuda"):
     """Blind-solve one image; write the ``.wcs`` header next to it.
 
     :param mask: run automatic star-field masking first
+    :param device: where ``mask_starfield`` computes (the card by default;
+        raises if it is CUDA and there is none)
     :param scale_range: (low, high) arcsec/px; default from EXIF
     :returns: path of the .wcs file, or None if unsolved
     """
@@ -134,10 +137,11 @@ def solve_image(image_path, wcs_path=None, mask=True, channel=None,
     img = load_image(image_path)
     sigma = None
     solver_input = image_path
+    if mask:  # before the temp dir: a masking that raises leaves none
+        m, sigma = mask_starfield(img, channel=channel, device=device)
     own_tmp = work_dir is None
     tmp_dir = work_dir or tempfile.mkdtemp(prefix="auromat_solve_")
     if mask:
-        m, sigma = mask_starfield(img, channel=channel)
         masked = img.copy()
         masked[~m] = 0
         # unique per image: a shared work_dir under the solve_images
@@ -182,6 +186,7 @@ def solve_image(image_path, wcs_path=None, mask=True, channel=None,
 def solve_images(image_paths, max_workers=None, **kw):
     """Thread-pool fan-out over solve_image — parallelism is effective
     because the solver is an external process (reference solving.py:44-87).
+    ``kw`` goes to each ``solve_image`` (``device`` among them).
 
     :returns: dict image_path -> wcs_path or None
     """

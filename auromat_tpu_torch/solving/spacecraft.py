@@ -7,7 +7,8 @@ SURVEY.md section 5), and stamp NORAD id + TLE-derived camera position into
 each solved header. Counterpart of ``auromat_tpu.solving.spacecraft``: SGP4
 runs on the host; the solution checks (:func:`intersects_earth`,
 :func:`is_consistent`) georeference their points in float64 on ``device``,
-the card by default.
+the card by default, and so does the star-field masking of each frame
+(``solve_image``'s ``device``, passed through ``solve_kw``).
 """
 
 import os
@@ -29,6 +30,8 @@ def solve_sequence(image_dir, wcs_dir, tle_path=None, norad_id=ISS_NORAD_ID,
 
     :param tle_path: TLE archive file; if None and space-track credentials
         are given, the archive is downloaded/updated first
+    :param solve_kw: for ``solve_image``; its ``device`` (the card by
+        default) is where the star-field masking computes
     :returns: dict image filename -> wcs path or None
     """
     os.makedirs(wcs_dir, exist_ok=True)
@@ -131,7 +134,8 @@ def solve(image_path, wcs_path, tle_path=None, norad_id=ISS_NORAD_ID,
           overwrite=False, **solve_kw):
     """Solve a single image into ``wcs_path``; returns True on success
     (reference solving/spacecraft.py:28-65). The spacecraft position is
-    stamped from the TLE archive when available, like solve_sequence."""
+    stamped from the TLE archive when available, like solve_sequence;
+    ``solve_kw`` goes to ``solve_image`` (``device`` among them)."""
     if os.path.exists(wcs_path) and not overwrite:
         raise FileExistsError(wcs_path)
     solved = solve_image(image_path, wcs_path, **solve_kw)

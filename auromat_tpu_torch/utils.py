@@ -16,6 +16,13 @@ border marks), so its output is array-equal to the JAX package's
 ``utils.outline``, start point and orientation included —
 ``Mapping.boundingBox`` samples the convex hull of that outline by index.
 
+The star-field masking's geometry is OpenCV's, in numpy:
+``trace_outer_borders`` (the borders of chosen components),
+``contour_approx_simple`` (``CHAIN_APPROX_SIMPLE``), ``bounding_rect``,
+``min_area_rect_axes`` (``minAreaRect``'s sides, up to ties of the least
+area), and the pixels ``cv2.line`` and ``cv2.fillPoly`` set
+(``line_pixels``, ``poly_fill_spans``), equal to OpenCV's.
+
 ``points_inside_polygon`` is numpy, not matplotlib (the card's machine has
 none either): the crossing test of matplotlib's ``point_in_path``, with
 the same predicates in the same float64 arithmetic, so its answer is
@@ -141,6 +148,151 @@ def _external_borders(padded):
         idx = np.asarray(pts, dtype=np.int64)
         out.append(np.stack([idx % w, idx // w], axis=1).astype(np.int32))
     return out
+
+
+def trace_outer_borders(padded, starts):
+    """The outer borders that start at the flat indices ``starts`` of
+    ``padded`` (uint8/bool, zero border), each as ``_external_borders``
+    gives it: (n, 2) int32 (x, y) in ``padded``'s coordinates. A start is
+    the first pixel in raster order of an 8-connected component; the
+    follower reads only that component, so the borders are the ones
+    ``cv2.findContours`` traces from those pixels."""
+    w = padded.shape[1]
+    a = (np.asarray(padded) != 0).astype(np.int8).ravel()
+    deltas = [1, -w + 1, -w, -w - 1, -1, w - 1, w, w + 1] * 2
+    out = []
+    for i0 in starts:
+        idx = np.asarray(_follow_outer_border(a, int(i0), deltas),
+                         dtype=np.int64)
+        out.append(np.stack([idx % w, idx // w], axis=1).astype(np.int32))
+    return out
+
+
+def contour_approx_simple(c):
+    """``CHAIN_APPROX_SIMPLE`` of a ``CHAIN_APPROX_NONE`` contour: the
+    points whose outgoing step differs from their incoming one (the start
+    point included: OpenCV compares it with the step that closes the
+    contour)."""
+    c = np.asarray(c)
+    if len(c) < 2:
+        return c
+    keep = ((np.roll(c, -1, axis=0) - c) != (c - np.roll(c, 1, axis=0))).any(
+        axis=1)
+    return c[keep]
+
+
+def bounding_rect(c):
+    """``cv2.boundingRect`` of (n, 2) integer points: (x, y, w, h)."""
+    c = np.asarray(c).reshape(-1, 2)
+    lo, hi = c.min(axis=0), c.max(axis=0)
+    return int(lo[0]), int(lo[1]), int(hi[0] - lo[0] + 1), int(hi[1] - lo[1] + 1)
+
+
+def _hull_int(points):
+    """Convex hull of (n, 2) integer points (Andrew's monotone chain), its
+    vertices in order, collinear points dropped; fewer than 3 when the
+    points are one point or on one line."""
+    p = np.unique(np.asarray(points, dtype=np.int64).reshape(-1, 2), axis=0)
+    if len(p) < 3:
+        return p
+
+    def chain(seq):
+        out = []
+        for q in seq:
+            while len(out) >= 2:
+                (ox, oy), (ax, ay) = out[-2], out[-1]
+                if (ax - ox) * (q[1] - oy) - (ay - oy) * (q[0] - ox) > 0:
+                    break
+                out.pop()
+            out.append((int(q[0]), int(q[1])))
+        return out[:-1]
+
+    return np.array(chain(p) + chain(p[::-1]), dtype=np.int64).reshape(-1, 2)
+
+
+def min_area_rect_axes(c):
+    """The side lengths of the least-area rectangle around (n, 2) integer
+    points, as ``cv2.minAreaRect(c)[1]`` gives them up to their order:
+    rotating calipers over the convex hull's edges (a rectangle of least
+    area has a side on a hull edge). Two points give (length, 0), one
+    point (0, 0). Where several orientations tie for the least area,
+    OpenCV's float32 calipers may settle on another of them."""
+    h = _hull_int(c).astype(np.float64)
+    if len(h) == 1:
+        return 0.0, 0.0
+    if len(h) == 2:
+        return float(np.hypot(*(h[1] - h[0]))), 0.0
+    e = np.roll(h, -1, axis=0) - h
+    u = e / np.hypot(e[:, 0], e[:, 1])[:, None]
+    along = h @ u.T  # (points, edges)
+    across = h @ np.stack([-u[:, 1], u[:, 0]], axis=1).T
+    w = along.max(axis=0) - along.min(axis=0)
+    ht = across.max(axis=0) - across.min(axis=0)
+    k = int(np.argmin(w * ht))
+    return float(w[k]), float(ht[k])
+
+
+def line_pixels(x0, y0, x1, y1):
+    """The pixels ``cv2.line(img, (x0, y0), (x1, y1), color)`` sets
+    (8-connected, thickness 1), as int64 arrays (xs, ys): OpenCV's
+    ``LineIterator`` from the left end point, whose Bresenham steps take
+    the minor axis ``m_i = (2 minor i + major - 1) // (2 major)`` times
+    after ``i`` major steps."""
+    x0, y0, x1, y1 = int(x0), int(y0), int(x1), int(y1)
+    if x1 < x0:
+        x0, y0, x1, y1 = x1, y1, x0, y0
+    dx, dy = x1 - x0, y1 - y0
+    sy = -1 if dy < 0 else 1
+    major, minor = max(dx, abs(dy)), min(dx, abs(dy))
+    i = np.arange(major + 1, dtype=np.int64)
+    m = (2 * minor * i + major - 1) // (2 * major) if major else i
+    if abs(dy) > dx:
+        return x0 + m, y0 + sy * i
+    return x0 + i, y0 + sy * m
+
+
+_XY_SHIFT = 16  # OpenCV's fixed-point fraction bits of polygon edges
+
+
+def poly_fill_spans(polys):
+    """What ``cv2.fillPoly(img, polys, color)`` (8-connected, no shift)
+    sets, as (rows, first, last) spans (int64, ``last`` inclusive) and the
+    (xs, ys) pixels of the edges it draws. OpenCV collects every
+    non-horizontal edge of every polygon into one list; on each row ``y``
+    an edge from (x0, y0) down to y1 > y0 crosses at
+    ``x0 + (y - y0) * dx`` in 16-bit fixed point (``dx`` the truncated
+    quotient) for ``y0 <= y < y1``; the crossings, sorted, pair up (even-
+    odd) and each pair fills ``ceil(xa) .. floor(xb)``. The vertices must
+    lie inside the image (OpenCV moves the crossings of clipped edges)."""
+    rows, xs_fp, lx, ly = [], [], [], []
+    for p in polys:
+        p = np.asarray(p, dtype=np.int64).reshape(-1, 2)
+        q = np.roll(p, 1, axis=0)  # each edge runs from the previous vertex
+        for (ax, ay), (bx, by) in zip(q, p):
+            x, y = line_pixels(ax, ay, bx, by)
+            lx.append(x)
+            ly.append(y)
+        keep = q[:, 1] != p[:, 1]
+        (ax, ay), (bx, by) = q[keep].T, p[keep].T
+        ax, bx = ax << _XY_SHIFT, bx << _XY_SHIFT
+        num, den = bx - ax, by - ay
+        dx = np.sign(num) * np.sign(den) * (np.abs(num) // np.abs(den))
+        down = ay < by
+        top = np.where(down, ay, by)
+        n = np.abs(by - ay)
+        e = np.repeat(np.arange(len(n)), n)
+        k = np.arange(int(n.sum())) - np.repeat(np.cumsum(n) - n, n)
+        rows.append(top[e] + k)
+        xs_fp.append(np.where(down, ax, bx)[e] + k * dx[e])
+    if not lx:
+        z = np.zeros(0, dtype=np.int64)
+        return (z, z, z), (z, z)
+    rows, xs_fp = np.concatenate(rows), np.concatenate(xs_fp)
+    order = np.lexsort((xs_fp, rows))
+    rows, xs_fp = rows[order], xs_fp[order]
+    first = (xs_fp[0::2] + (1 << _XY_SHIFT) - 1) >> _XY_SHIFT
+    last = xs_fp[1::2] >> _XY_SHIFT
+    return (rows[0::2], first, last), (np.concatenate(lx), np.concatenate(ly))
 
 
 def _contour_area(c):

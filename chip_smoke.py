@@ -10,9 +10,10 @@ mosaic, the all-sky-imager path (THEMIS and MIRACLE providers,
 (``resample_mlat_mlt``), georeferencing through the generic FITS
 projections, the ESA ISS archive path (lens correction on the card,
 products read back, TLE camera positions), the solving path
-(``solve_sequence`` with a stand-in ``solve-field``, the Earth checks on
-the card) and the drawing layer's numbers (the KML overlay on K1, the
-horizon, RA/Dec and constellation overlays), and checks them:
+(``solve_sequence`` with a stand-in ``solve-field``, the star-field
+masking and its Hough kernel and the Earth checks on the card) and the
+drawing layer's numbers (the KML overlay on K1, the horizon, RA/Dec and
+constellation overlays), and checks them:
 
 1. the card (``nvidia-smi`` name and power limit);
 2. starts the build of every kernel source from this checkout, one nvcc
@@ -154,25 +155,34 @@ horizon, RA/Dec and constellation overlays), and checks them:
     on the card, against the mapping from the header's own position;
 25. ``profiling.benchmark`` of K1 at the main path's shapes beside [5]'s
     CUDA-event median;
-26. the solving path: the seeded ISS frame under three names (saved with
-    numpy; ``load_image``, ``save_image`` and ``read_exif_time`` replaced by
+26. the solving path: the seeded 4256x2832 star-field frame
+    (``starfield_frame``: stars, an Earth below a curved horizon, dim
+    struts, a bright panel) under three names (saved with numpy;
+    ``load_image``, ``save_image`` and ``read_exif_time`` replaced by
     numpy stand-ins for the phase: no PIL here) and a stand-in
     ``solve-field`` (a sh script writing the real .wcs without its POS*
-    cards) through ``solve_sequence(mask=False)`` with the fitted ISS TLE
-    (no cv2 here, so no masking): NORAD id, IMAGEW/IMAGEH and SGP4
+    cards) through ``solve_sequence(mask=True, device='cuda')`` with the
+    fitted ISS TLE: ``mask_starfield`` on the card for each frame (HOUGH_P
+    counted from 0: one launch a frame), NORAD id, IMAGEW/IMAGEH and SGP4
     positions within 15 km of the real header's stamped; a second call
     runs the solver 0 times; a solver sleeping past a 2 s timeout gives
     None and leaves no process of its group; ``is_consistent`` and
     ``intersects_earth`` on the card equal the CPU (True, False, False for
     the stamped header and the header turned to nadir and zenith), timed;
-    the stamped header through ``create_mapping`` -> ``resample`` (K1
-    launched, held against its plain version on the recorded arguments and
-    timed: a kernel row of its own) equal to [24]'s TLE mapping resampled;
-    ``util.histogram.histogram2d`` with the weights (count, R, G, B,
-    elevation) over the mapping's valid centres on the card against the
-    host (counts equal, sums within 1e-12 relative), timed;
-    ``io.fits.get_catalog_stars('bright')`` and
+    the stamped header through ``create_mapping`` -> ``resample`` of the
+    ISS frame (K1 launched, held against its plain version on the recorded
+    arguments and timed: a kernel row of its own) equal to [24]'s TLE
+    mapping resampled; ``util.histogram.histogram2d`` with the weights
+    (count, R, G, B, elevation) over the mapping's valid centres on the
+    card against the host (counts equal, sums within 1e-12 relative),
+    timed; ``io.fits.get_catalog_stars('bright')`` and
     ``recompute_xyls_pixel_positions`` on the card against the CPU;
+    HOUGH_P (``ops/csrc/hough_p.cu``) against ``_hough_p_plain`` on
+    seeded 240x320 frames at thresholds 200 and 60 and on the star-field
+    frame's Hough input (the same lines in the same order), timed (CUDA
+    events) beside its bound: a kernel row of its own; the path's masks
+    equal ``mask_starfield`` on the CPU (pixels and sigma); the masking's
+    wall time on the card and the CPU and its device time (profiler);
 27. the drawing layer's numbers on the card against the CPU, on the seeded
     frame's 12 MP mapping (the real header, ``create_mapping`` on the
     card): ``draw_kml_image`` (PIL's writer replaced by numpy for the
@@ -195,7 +205,8 @@ fixed-point elevation) sums given the cell indices, and for K3, whose
 function starts from coordinates, the chain of float64 ``bin_indices``,
 the valid samples' data (NaN zeroed) and that ``index_add_`` (the
 ``index_add_`` alone is kept as ``library_ms_given_indices``). The port
-never calls them.
+never calls them. HOUGH_P's row has no library call (``library_ms`` null):
+no PyTorch call computes OpenCV's probabilistic Hough transform.
 
 Prints one line per phase, then the card's line, a JSON line of
 per-kernel results, and as the last line ``{"ok": true, "device":
@@ -1960,6 +1971,32 @@ def iss_frame(np):
                                                     dtype=np.uint8)
 
 
+def starfield_frame(np):
+    """The seeded 4256x2832 uint8 star-field frame of [26]'s masking: a
+    dark sky with 4000 stars, the Earth below a curved horizon, three dim
+    struts (a little brighter than the sky: the Hough lines find them,
+    the first threshold does not) and a bright panel in the top left
+    corner (a big contour, like the Earth)."""
+    h, w = 2832, 4256
+    rng = np.random.default_rng(SEED + 11)
+    img = rng.integers(8, 13, (h, w), dtype=np.int16)
+    ys, xs = rng.integers(1, h - 1, 4000), rng.integers(1, w - 1, 4000)
+    val = rng.integers(120, 256, 4000)
+    for dy in (0, 1):
+        for dx in (0, 1):
+            img[ys + dy, xs + dx] = val
+    earth = np.arange(h)[:, None] > 0.62 * h + 4e-5 * (np.arange(w) - w / 2) ** 2
+    img[earth] = (110 + rng.integers(0, 40, (h, w)))[earth]
+    for x0, y0, x1, y1 in ((300, 150, 3900, 900), (600, 1400, 3500, 300),
+                           (2000, 100, 2100, 1500)):
+        t = np.linspace(0, 1, max(abs(x1 - x0), abs(y1 - y0)) + 1)
+        px = np.rint(x0 + t * (x1 - x0)).astype(int)
+        py = np.rint(y0 + t * (y1 - y0)).astype(int)
+        img[py, px] = img[py + 1, px] = 24
+    img[:300, :500] = 200
+    return np.repeat(img.astype(np.uint8)[..., None], 3, axis=2)
+
+
 def iss_cache(np, folder):
     """An offline ESA ISS archive cache: the real .wcs, api.json with the
     archive's poly3 (-0.019) model and the 180-degree flip, metadata.json,
@@ -2252,17 +2289,26 @@ def solving_phase(torch, np, card):
 
     si = stand_ins()
     dev = torch.device("cuda")
-    k1 = _kernels.GEOREGRID_BIN
+    k1, hp = _kernels.GEOREGRID_BIN, _kernels.HOUGH_P
     frame = iss_frame(np)
+    sky = starfield_frame(np)
     date = datetime.datetime.strptime(ISS_DATE, "%Y-%m-%dT%H:%M:%S.%f")
     names = [f"ISS030-E-{102170 + i}.jpg" for i in range(3)]
-    # no PIL on this machine: the frame is saved with numpy under the JPEG
-    # names, and the three readers the path calls are replaced for the
-    # phase (load_image, save_image; read_exif_time gives the header's
-    # DATE-OBS: one frame under three names)
+    # no PIL on this machine: the star-field frame is saved with numpy
+    # under the JPEG names, and the three readers the path calls are
+    # replaced for the phase (load_image, save_image; read_exif_time gives
+    # the header's DATE-OBS: one frame under three names); the masks the
+    # path computes are kept
+    path_masks = []
+
+    def keep_mask(img, **kw):
+        path_masks.append(real[(solving, "mask_starfield")](img, **kw))
+        return path_masks[-1]
+
     stubs = {(solving, "load_image"): lambda path: np.load(path),
              (solving, "save_image"): lambda path, img: np.save(path, img),
-             (spacecraft, "read_exif_time"): lambda path: date}
+             (spacecraft, "read_exif_time"): lambda path: date,
+             (solving, "mask_starfield"): keep_mask}
     real = {k: getattr(*k) for k in stubs}
     for (mod, name), fn in stubs.items():
         setattr(mod, name, fn)
@@ -2271,7 +2317,7 @@ def solving_phase(torch, np, card):
         images = os.path.join(tmp.name, "images")
         os.makedirs(images)
         with open(os.path.join(images, names[0]), "wb") as f:
-            np.save(f, frame)
+            np.save(f, sky)
         for n in names[1:]:
             os.link(os.path.join(images, names[0]), os.path.join(images, n))
         real_header = fits.read_header(os.path.join(RES,
@@ -2283,11 +2329,15 @@ def solving_phase(torch, np, card):
             f.write(ISS_TLE)
         fake = si.fake_solve_field(tmp.name, solved_src)
         wcs_dir = os.path.join(tmp.name, "wcs")
-        kw = dict(tle_path=tle_path, mask=False, solve_field=fake,
-                  scale_range=(40.0, 60.0))
+        kw = dict(tle_path=tle_path, mask=True, device="cuda",
+                  solve_field=fake, scale_range=(40.0, 60.0))
+        torch.cuda.synchronize()
+        hp.launches = 0
         t0 = time.perf_counter()
         res = spacecraft.solve_sequence(images, wcs_dir, **kw)
+        torch.cuda.synchronize()
         seq_ms = (time.perf_counter() - t0) * 1e3
+        hough_launches = hp.launches
         n_first = len(si.solver_calls(tmp.name))
         hpos = np.array(fits.get_spacecraft_position(real_header))
         dists = []
@@ -2307,6 +2357,11 @@ def solving_phase(torch, np, card):
         if n_first != 3 or n_again != 0 or again != res:
             raise AssertionError(f"solve_sequence: {n_first} solver calls, "
                                  f"{n_again} on the resumed run")
+        if hough_launches != 3 or hp.launches != 3 or len(path_masks) != 3:
+            raise AssertionError(f"solve_sequence(mask=True): HOUGH_P "
+                                 f"launched {hough_launches} times for 3 "
+                                 f"frames ({hp.launches} after the resumed "
+                                 f"run), {len(path_masks)} masks")
         # the timeout kill: a solver that sleeps past a 2 s timeout
         slow = si.fake_solve_field(tmp.name, solved_src, sleep=60)
         t0 = time.perf_counter()
@@ -2330,11 +2385,11 @@ def solving_phase(torch, np, card):
         for (mod, name), fn in real.items():
             setattr(mod, name, fn)
         tmp.cleanup()
-    print(f"[26] solve_sequence over 3 names of the seeded 4256x2832 frame "
-          f"(numpy stand-ins for PIL's load_image/save_image and the EXIF "
-          f"time; mask=False: no cv2 on this machine, so mask_starfield, "
-          f"which needs OpenCV's contours and Hough lines, did not run "
-          f"here) with a stand-in solve-field and the fitted ISS TLE: 3 "
+    print(f"[26] solve_sequence(mask=True, device='cuda') over 3 names of "
+          f"the seeded 4256x2832 star-field frame (numpy stand-ins for PIL's "
+          f"load_image/save_image and the EXIF time) with a stand-in "
+          f"solve-field and the fitted ISS TLE: mask_starfield on the card "
+          f"for each frame, {hough_launches} launches of HOUGH_P, 3 "
           f"solver calls, 3 headers with NORADID 25544, IMAGEW/IMAGEH "
           f"4256x2832, SGP4 positions {max(dists):.3f} km from the real "
           f"header's, {seq_ms:.1f} ms wall; resumed: 0 solver calls; a "
@@ -2449,12 +2504,120 @@ def solving_phase(torch, np, card):
     print(f"[26] io.fits on the card == the CPU: get_catalog_stars('bright') "
           f"{n_stars} stars in the frame, recompute_xyls_pixel_positions of "
           f"1000 stars under a moved solution; max {perr:.3g} px", flush=True)
-    return kernel_row("georegrid_bin (K1) on the solving path, the solved "
-                      "header -> create_mapping -> resample('mean') "
-                      f"-> {r.img.shape[0]}x{r.img.shape[1]}",
-                      "auromat_tpu_torch/ops/csrc/georegrid_bin.cu",
-                      "auromat_tpu/ops/georegrid.py:65", launches,
-                      *on_solved["K1"])
+    return [kernel_row("georegrid_bin (K1) on the solving path, the solved "
+                       "header -> create_mapping -> resample('mean') "
+                       f"-> {r.img.shape[0]}x{r.img.shape[1]}",
+                       "auromat_tpu_torch/ops/csrc/georegrid_bin.cu",
+                       "auromat_tpu/ops/georegrid.py:65", launches,
+                       *on_solved["K1"]),
+            masking_phase(torch, np, card, sky, path_masks, hough_launches)]
+
+
+def hough_frame(np, seed):
+    """A seeded 240x320 0/255 frame for HOUGH_P's small check: 4% random
+    pixels and four long lines across it."""
+    from auromat_tpu_torch.utils import line_pixels
+
+    rng = np.random.default_rng(SEED + seed)
+    img = (rng.random((240, 320)) < 0.04).astype(np.uint8) * 255
+    ends = [(0, y0, 319, y1) for y0, y1 in rng.integers(0, 240, (3, 2))]
+    ends.append((rng.integers(0, 320), 0, rng.integers(0, 320), 239))
+    for e in ends:
+        xs, ys = line_pixels(*e)
+        img[ys, xs] = 255
+    return img
+
+
+def masking_phase(torch, np, card, sky, path_masks, launches):
+    """Phase 26, the masking: HOUGH_P against ``_hough_p_plain`` on small
+    seeded frames and on the star-field frame's Hough input, and timed;
+    the masks ``solve_sequence`` made on the card against
+    ``mask_starfield`` on the CPU; the masking's wall and device time on
+    the card and its wall time on the CPU. Returns HOUGH_P's kernel row."""
+    import math
+
+    from auromat_tpu_torch.solving import masking
+
+    dev = torch.device("cuda")
+    args = (1, math.pi / 180)
+    n_small = 0
+    for seed in (1, 2, 3):
+        img = hough_frame(np, seed)
+        for thr, length in ((200, 100), (60, 30)):
+            want = masking._hough_p_plain(img, *args, thr, length, 4)
+            got = masking.hough_lines_p(torch.from_numpy(img).to(dev), *args,
+                                        thr, length, 4)
+            if len(want) == 0 or not np.array_equal(got, want):
+                raise AssertionError(f"HOUGH_P on the seeded 240x320 frame "
+                                     f"{seed} (threshold {thr}): {len(got)} "
+                                     f"lines, the plain version {len(want)}")
+            n_small += len(want)
+    gray = masking._gray(torch.from_numpy(sky).to(dev), None)
+    mask, _ = masking._dark_area_mask(gray, True)
+    binary = masking._line_candidates(gray * mask, mask)
+    host = binary.cpu().numpy()
+    t0 = time.perf_counter()
+    want = masking._hough_p_plain(host, *args, 200, 100, 4)
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    got = masking.hough_lines_p(binary, *args, 200, 100, 4)
+    if len(want) == 0 or not np.array_equal(got, want):
+        raise AssertionError(f"HOUGH_P on the star-field frame: {len(got)} "
+                             f"lines, the plain version {len(want)}")
+    err = float(np.abs(got.astype(np.int64) - want).max())
+    # the kernel alone: a fresh mask and accumulator for each run
+    a = masking._hough_p_args(binary, *args, 200, 100, 4)
+    mask0 = a["mask"].clone()
+
+    def launch():
+        masking._hough_p_launch(a)
+
+    runs = []
+    for _ in range(5):
+        a["mask"].copy_(mask0)
+        a["acc"].zero_()
+        runs.append(cuda_ms(torch, launch, 1))
+    k_ms = statistics.median(runs)
+    n_bytes = 8 * a["count"] + host.size + 16 * len(want) + 8 * a["numangle"]
+    print(f"[26] HOUGH_P == _hough_p_plain (the same lines in the same "
+          f"order) on 3 seeded 240x320 frames at thresholds 200 and 60 "
+          f"({n_small} lines) and on the star-field frame's Hough input "
+          f"({a['count']} candidate pixels, {len(want)} lines); on the "
+          f"path: {launches} launches (one a frame); kernel "
+          f"{k_ms:.1f} ms (CUDA events, median of 5: "
+          f"{[round(r, 1) for r in runs]}), plain (numpy, host) "
+          f"{plain_ms:.1f} ms, bound {bound_ms(n_bytes):.4f} ms ({n_bytes} "
+          f"bytes at 3.35 TB/s: the visit order, the mask, the lines); on "
+          f"{card}", flush=True)
+
+    # the masks the path made, against mask_starfield on the CPU
+    t0 = time.perf_counter()
+    cmask, csigma = masking.mask_starfield(sky, device="cpu")
+    cpu_ms = (time.perf_counter() - t0) * 1e3
+    for m, sigma in path_masks:
+        if not (np.array_equal(m, cmask) and sigma == csigma):
+            raise AssertionError(f"mask_starfield on the card != the CPU: "
+                                 f"{int((m != cmask).sum())} pixels, sigma "
+                                 f"{sigma} vs {csigma}")
+    card_ms = wall_ms(torch, lambda: masking.mask_starfield(sky, device=dev),
+                      N_WALL)
+    busy = device_busy_ms(torch, lambda: masking.mask_starfield(sky,
+                                                                device=dev))
+    busy_txt = ("no device events traced" if busy is None else
+                f"{busy[0]:.1f} ms in {busy[2]} kernels + {busy[1]:.1f} ms "
+                f"in copies")
+    print(f"[26] mask_starfield of the star-field frame: the 3 masks of the "
+          f"path (card) == the CPU's (0 pixels apart, sigma {csigma:.6f}), "
+          f"starfield {cmask.mean():.4f} of the frame; wall ms on the card "
+          f"{card_ms:.1f} (median of {N_WALL}; device: {busy_txt}), on the "
+          f"CPU {cpu_ms:.1f}; on {card}", flush=True)
+    return {"name": "hough_p (HOUGH_P), cv2.HoughLinesP's algorithm on the "
+                    "solving path's masking (no TPU kernel: the JAX package "
+                    "calls OpenCV on the host)",
+            "route": "cuda", "source": "auromat_tpu_torch/ops/csrc/hough_p.cu",
+            "replaces": "auromat_tpu/solving/masking.py:221",
+            "launches": launches, "max_abs_err": err, "ms": k_ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms(n_bytes),
+            "bound_by": "bytes", "library_ms": None}
 
 
 def drawing_phase(torch, np, card):
@@ -2627,7 +2790,8 @@ def main():
           f"{torch.__version__} cuda {torch.version.cuda}", flush=True)
 
     # -- 2. build every kernel source at once; wait for K1's ---------------
-    builds = start_builds([_kernels.GEOREGRID_BIN, _kernels.REGRID_BIN])
+    builds = start_builds([_kernels.GEOREGRID_BIN, _kernels.REGRID_BIN,
+                           _kernels.HOUGH_P])
     kernels = {"K1": _kernels.GEOREGRID_BIN}
     for name, k in kernels.items():
         secs = builds[k.source].result()
@@ -2785,7 +2949,7 @@ def main():
     rows.append(asi_phases(torch, np, card))
     rows += magnetic_generic_phases(torch, np, card)
     rows.append(iss_phases(torch, np, card, k1_ms))
-    rows.append(solving_phase(torch, np, card))
+    rows += solving_phase(torch, np, card)
     rows.append(drawing_phase(torch, np, card))
 
     print(card)

@@ -36,7 +36,7 @@ from auromat_tpu_torch.mapping.iss import ISSMappingProvider
 from auromat_tpu_torch.util.lensdistortion import (
     correct_lens_distortion, correct_lens_distortion_exif)
 from auromat_tpu_torch.parallel import global_mesh, initialize, make_mesh
-from auromat_tpu_torch.solving import eol
+from auromat_tpu_torch.solving import eol, masking, solving
 from auromat_tpu_torch.solving.spacecraft import (intersects_earth,
                                                   is_consistent)
 from auromat_tpu_torch.util.histogram import histogram2d, histogramdd
@@ -189,6 +189,11 @@ ENTRY_POINTS = {
             "FocalLength": 24.0}),
     "pixel_directions": lambda s, tmp: pixel_directions(TanWcs(s.header)),
     "intersects_earth": lambda s, tmp: intersects_earth(s.header),
+    "mask_starfield": lambda s, tmp: masking.mask_starfield(s.img),
+    "debug.batch_mask": lambda s, tmp: debug.batch_mask(RES, str(tmp / "o")),
+    "solve_image": lambda s, tmp: solving.solve_image(
+        os.path.join(RES, "ISS030-E-102170_dc.jpg"), str(tmp / "x.wcs"),
+        solve_field="sh"),
     "is_consistent": lambda s, tmp: is_consistent(s.header),
     "histogram2d": lambda s, tmp: histogram2d([0.5], [0.5], 2,
                                               weights=[None]),

@@ -833,7 +833,7 @@ def test_debug_batch_mask_matches_jax(tmp_path):
     src.mkdir()
     shutil.copy(IMG, src / "frame.jpg")
     (src / "notes.txt").write_text("skipped")
-    got = tdebug.batch_mask(str(src), str(tmp_path / "t"))
+    got = tdebug.batch_mask(str(src), str(tmp_path / "t"), device="cpu")
     want = jdebug.batch_mask(str(src), str(tmp_path / "j"))
     assert set(got) == set(want) == {"frame.jpg"}
     assert got["frame.jpg"][1] == want["frame.jpg"][1]

@@ -62,6 +62,12 @@ only the port is installed:
   ``io.fits.get_catalog_stars('bright')`` and
   ``recompute_xyls_pixel_positions``, projected in float64 on the card,
   within 1e-9 px of the CPU's.
+* The star-field masking on the card: HOUGH_P (``ops/csrc/hough_p.cu``)
+  against ``_hough_p_plain`` on chip_smoke.py's seeded 240x320 frames at
+  thresholds 200 and 60 (the same lines in the same order, one launch a call) and its
+  refusal of more angles than its block has threads; ``mask_starfield``
+  of chip_smoke.py's seeded 4256x2832 star-field frame on the card equal
+  to the CPU's (pixels and sigma), HOUGH_P launched once.
 * The drawing layer's numeric helpers on the card against the CPU, on a
   512x384 mapping of the scaled calibration: the KML overlay (its
   ``resample('mean')`` launches K1; KML text and RGBA equal), the horizon
@@ -1056,3 +1062,48 @@ def test_draw_numeric_helpers_gpu_match_cpu(cuda, draw_mapping):
     assert list(got) == list(want) == list(data)
     for name in data:
         assert_allclose(got[name], want[name], rtol=0, atol=1e-9)
+
+
+def _chip_smoke():
+    """chip_smoke.py (numpy-only helpers: the seeded frames)."""
+    import sys
+
+    sys.path.insert(0, os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    import chip_smoke
+
+    return chip_smoke
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("seed", [1, 2, 3])
+@pytest.mark.parametrize("thr,length", [(200, 100), (60, 30)])
+def test_hough_p_gpu_matches_plain(cuda, seed, thr, length):
+    import math
+
+    from auromat_tpu_torch.solving import masking
+
+    img = _chip_smoke().hough_frame(np, seed)
+    want = masking._hough_p_plain(img, 1, math.pi / 180, thr, length, 4)
+    before = _kernels.HOUGH_P.launches
+    got = masking.hough_lines_p(torch.from_numpy(img).to(cuda), 1,
+                                math.pi / 180, thr, length, 4)
+    assert _kernels.HOUGH_P.launches == before + 1
+    assert len(want) > 0 and got.dtype == np.int32
+    assert np.array_equal(got, want)
+    with pytest.raises(ValueError, match="angles"):
+        masking.hough_lines_p(torch.from_numpy(img).to(cuda), 1,
+                              math.pi / 360, thr, length, 4)
+
+
+@pytest.mark.gpu
+def test_mask_starfield_gpu_matches_cpu(cuda):
+    from auromat_tpu_torch.solving import masking
+
+    frame = _chip_smoke().starfield_frame(np)
+    before = _kernels.HOUGH_P.launches
+    mask, sigma = masking.mask_starfield(frame, device=cuda)
+    assert _kernels.HOUGH_P.launches == before + 1
+    cmask, csigma = masking.mask_starfield(frame, device="cpu")
+    assert np.array_equal(mask, cmask) and sigma == csigma
+    assert 0.2 < mask.mean() < 0.8

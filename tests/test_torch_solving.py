@@ -4,8 +4,8 @@ package on the CPU.
 * ``masking.mask_starfield`` on the two checked-in ISS frames (once per
   module): the block mask bit-identical to golden_masking_*.npz (the
   executed reference) and to the JAX package, sigma within 1e-2 of the
-  golden and equal to JAX's; from a path (cv2 decodes) and from the PIL
-  array alike. ``mask_starfield_rect`` on an array needs no cv2. A small
+  golden and equal to JAX's; from a path (``io.image`` decodes) and from
+  the PIL array alike. ``mask_starfield_rect`` on an array needs no cv2. A small
   synthetic frame for the channel options and the helpers.
 * ``noise.estimate_noise_level`` equal to JAX's.
 * ``solving.build_solve_command`` and ``estimate_arcsec_range`` equal.
@@ -61,8 +61,8 @@ def masks():
     out = {}
     for name in FRAMES:
         path = os.path.join(RES, f"{name}.jpg")
-        out[name] = (masking.mask_starfield(path),
-                     masking.mask_starfield(load_image(path)),
+        out[name] = (masking.mask_starfield(path, device="cpu"),
+                     masking.mask_starfield(load_image(path), device="cpu"),
                      jmasking.mask_starfield(path))
     return out
 
@@ -105,7 +105,8 @@ def synthetic_frame(seed=1, h=240, w=320):
                                                 "ignore_very_dark": False})])
 def test_mask_starfield_synthetic_matches_jax(channel, kw):
     img = synthetic_frame()
-    mask, sigma = masking.mask_starfield(img, channel=channel, **kw)
+    mask, sigma = masking.mask_starfield(img, channel=channel, device="cpu",
+                                         **kw)
     jmask, jsigma = jmasking.mask_starfield(img, channel=channel, **kw)
     assert np.array_equal(mask, jmask) and sigma == jsigma
     assert 0 < mask.mean() < 1
@@ -130,11 +131,11 @@ def test_masking_helpers_match_jax():
     assert masking._block_shape((240, 320)) == (20, 20)
     with pytest.raises(ValueError, match="not divisible"):
         masking._block_shape((241, 320))
-    for mod in (masking, jmasking):
+    for mod, kw in ((masking, {"device": "cpu"}), (jmasking, {})):
         with pytest.raises(ValueError, match="channel"):
-            mod.mask_starfield(synthetic_frame(), channel="X")
+            mod.mask_starfield(synthetic_frame(), channel="X", **kw)
     with pytest.raises(IOError):
-        masking.mask_starfield(os.path.join(RES, "missing.jpg"))
+        masking.mask_starfield(os.path.join(RES, "missing.jpg"), device="cpu")
 
 
 def test_noise_matches_jax():
@@ -208,10 +209,11 @@ def test_solve_image_bytes_match_jax(tmp_path, monkeypatch):
     work = tmp_path / "work"
     work.mkdir()
     out = {}
-    for name, mod in (("port", solving), ("jax", jsolving)):
+    for name, mod, kw in (("port", solving, {"device": "cpu"}),
+                          ("jax", jsolving, {})):
         wcs = str(tmp_path / f"{name}.wcs")
         assert mod.solve_image(img_path, wcs, solve_field=fake,
-                               work_dir=str(work)) == wcs
+                               work_dir=str(work), **kw) == wcs
         out[name] = open(wcs, "rb").read()
     assert out["port"] == out["jax"]
     h = fits.read_header(tmp_path / "port.wcs")
@@ -262,7 +264,7 @@ def test_solve_images_thread_pool(tmp_path):
     work.mkdir()
     res = solving.solve_images(paths + [str(tmp_path / "missing.png")],
                                max_workers=3, solve_field=fake,
-                               work_dir=str(work))
+                               work_dir=str(work), device="cpu")
     assert res == {**{p: p[:-4] + ".wcs" for p in paths},
                    str(tmp_path / "missing.png"): None}
     assert sorted(_images(tmp_path)) == sorted(
