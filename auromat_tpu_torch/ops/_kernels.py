@@ -138,9 +138,16 @@ REGRID_BIN_V1 = CudaKernel("regrid_bin.cu", "regrid_bin_launch", _K2_ARGS)
 
 # HOUGH_P (solving/masking.py::hough_lines_p): OpenCV's probabilistic Hough
 # transform, which the JAX package calls on the host (no TPU kernel); one
-# block of HOUGH_P_THREADS threads, one thread an angle
+# block of HOUGH_P_THREADS threads, one thread an angle, reading the
+# accumulator for 16 live candidates at a time and resolving every trigger
+# among them from registers
 HOUGH_P_THREADS = 192
+HOUGH_P_MAX_SIDE = 16383  # the walks keep 512 rounds of 32 positions
 HOUGH_P = CudaKernel("hough_p.cu", "hough_p_launch",
                      [_P, ctypes.c_int, _P, ctypes.c_int, ctypes.c_int, _P,
                       ctypes.c_int, ctypes.c_int, _P, ctypes.c_int,
-                      ctypes.c_int, ctypes.c_int, _P, _P, _P])
+                      ctypes.c_int, ctypes.c_int, _P, _P, _P, _P])
+# HOUGH_ORDER (solving/masking.py::_hough_order_cuda): HoughLinesP's visit
+# order (OpenCV's RNG and its swap-with-last permutation) on the card
+HOUGH_ORDER = CudaKernel("hough_order.cu", "hough_order_launch",
+                         [ctypes.c_int, _P, _P, ctypes.c_longlong, _P])

@@ -39,10 +39,12 @@ set pixels visited in the order of OpenCV's RNG (seed 2^64-1, the visit
 order fixed by the count alone), a float32 vote ``rint(x c + y s)`` per
 angle (``theta`` rounded to float32 first, as OpenCV's signature does),
 the first maximum, the 16-bit fixed-point walks. On a CUDA tensor
-``hough_lines_p`` launches the kernel ``ops/csrc/hough_p.cu``
-(``ops._kernels.HOUGH_P``); on a CPU tensor it runs ``_hough_p_plain``,
-the same algorithm sequentially in numpy. Both give OpenCV's lines in
-OpenCV's order.
+``hough_lines_p`` draws the visit order on the card
+(``ops/csrc/hough_order.cu``, ``ops._kernels.HOUGH_ORDER``) and launches
+the kernel ``ops/csrc/hough_p.cu`` (``ops._kernels.HOUGH_P``); on a CPU
+tensor it runs ``_hough_p_plain``, the same algorithm sequentially in
+numpy. Both give OpenCV's lines in OpenCV's order, and the same counts of
+the trajectory (voters, triggers, clearing steps, lines).
 """
 
 import math
@@ -313,6 +315,10 @@ def masked_adaptive_threshold(image, mask, max_value, size, c):
 
 
 _RNG_COEFF = 4164903690  # OpenCV's RNG: multiply with carry, CV_RNG_COEFF
+_RNG_MOD = _RNG_COEFF * (1 << 32) - 1  # the MWC's modulus m
+# the state after one step from 2^64-1; the only state >= m on the way
+_RNG_S1 = (_RNG_COEFF + 1) * ((1 << 32) - 1)
+_RNG_INV32 = pow(1 << 32, -1, _RNG_MOD)  # one step multiplies by 2^-32 mod m
 _HOUGH_SHIFT = 16  # fixed-point fraction bits of the walks
 
 
@@ -321,7 +327,10 @@ def _hough_order(count):
     indices into their raster-order list: OpenCV's RNG (state 2^64-1,
     ``state = (state & 0xffffffff) * 4164903690 + (state >> 32)``) draws
     ``idx = (state & 0xffffffff) % remaining``; the drawn pixel is
-    replaced by the last remaining one. It depends on ``count`` only."""
+    replaced by the last remaining one. It depends on ``count`` only.
+    The plain version of the order kernel (``ops/csrc/hough_order.cu``),
+    one draw at a time; ``_hough_order_chains(_hough_draws(count))`` is
+    the same order computed the kernel's way."""
     state = (1 << 64) - 1
     m32 = 0xFFFFFFFF
     perm = list(range(count))
@@ -332,6 +341,65 @@ def _hough_order(count):
         out[k] = perm[idx]
         perm[idx] = perm[c - 1]
     return np.array(out, dtype=np.int64)
+
+
+def _mwc_state(n):
+    """The RNG's state after ``n >= 1`` steps from 2^64-1, by jump-ahead:
+    a step maps a state s to ``(s & 0xffffffff) c + (s >> 32)``, which is
+    ``s 2^-32 (mod m)`` for ``m = c 2^32 - 1``, and every state after the
+    first is below m, so ``s_n = (2^-32)^(n-1) s_1 mod m`` for n >= 2."""
+    if n == 1:
+        return _RNG_S1
+    return pow(_RNG_INV32, n - 1, _RNG_MOD) * _RNG_S1 % _RNG_MOD
+
+
+def _hough_draws(count):
+    """OpenCV's draws for ``count`` pixels: ``idx_k = (s_(k+1) &
+    0xffffffff) % (count - k)`` (int64). Each segment of 1024 draws starts
+    from its state by jump-ahead (``_mwc_state``); the segments then step
+    together in uint64 numpy (a step's value stays below 2^64)."""
+    seg = 1024
+    draws = np.zeros(count, dtype=np.int64)
+    starts = np.arange(0, count, seg)
+    state = np.array([_mwc_state(int(k) + 1) for k in starts], dtype=np.uint64)
+    m32, coeff, s32 = np.uint64(0xFFFFFFFF), np.uint64(_RNG_COEFF), np.uint64(32)
+    for t in range(seg):
+        k = starts + t
+        ok = k < count
+        if not ok.any():
+            break
+        k, st = k[ok], state[ok]
+        draws[k] = ((st & m32) % (count - k).astype(np.uint64)).astype(np.int64)
+        state = (state & m32) * coeff + (state >> s32)
+    return draws
+
+
+def _hough_order_chains(draws):
+    """The visit order from OpenCV's draws, every output at once: output k
+    is the value in slot ``idx_k`` at step k. That slot holds its own
+    index unless an earlier step j wrote it (``idx_j == idx_k``, ``idx_j
+    != count-1-j``: step j moved slot ``count-1-j``'s value there); then
+    the value is the one slot ``count-1-j`` held at step j, for the last
+    such j, and so on back in time. The (slot, step) pairs of the writes
+    are sorted once; each pass moves every unfinished output one hop back
+    by a binary search (at 910,556 pixels: at most 18 hops, 1.0 on
+    average). The plain version of the order kernel's second step."""
+    draws = np.asarray(draws, dtype=np.int64)
+    count = len(draws)
+    steps = np.arange(count, dtype=np.int64)
+    writes = draws != count - 1 - steps
+    keys = np.sort(draws[writes] * count + steps[writes])
+    slot, when = draws.copy(), steps.copy()
+    out = np.empty(count, dtype=np.int64)
+    todo = steps
+    while len(todo):
+        pos = np.searchsorted(keys, slot[todo] * count + when[todo]) - 1
+        hit = pos >= 0
+        hit[hit] = keys[pos[hit]] // count == slot[todo[hit]]
+        out[todo[~hit]] = slot[todo[~hit]]
+        todo, j = todo[hit], keys[pos[hit]] % count
+        slot[todo], when[todo] = count - 1 - j, j
+    return out
 
 
 def _hough_setup(shape, rho, theta):
@@ -363,12 +431,25 @@ def _walk_step(a, b):
     return False, int(np.rint(np.float32(a * one) / abs(b))), (1 if b > 0 else -1)
 
 
-def _hough_p_plain(binary, rho, theta, threshold, line_length, line_gap):
+HOUGH_COUNTERS = ("voters", "triggers", "clear_steps", "lines")
+
+
+def _hough_p_plain(binary, rho, theta, threshold, line_length, line_gap,
+                   counters=None):
     """``cv2.HoughLinesP`` of a (h, w) uint8 array, sequentially on the
     host: (n, 4) int32 lines (x0, y0, x1, y1) in OpenCV's order. The plain
     version of ``ops/csrc/hough_p.cu``, in the same arithmetic: the votes
     of a chunk of pixels are computed at once in float32 numpy, the rest
-    (the vote, the walks) pixel by pixel."""
+    (the vote, the walks) pixel by pixel.
+
+    :param counters: a dict, if given, gets the trajectory's counts
+        (``HOUGH_COUNTERS``): ``voters``, the visited pixels still set
+        (each votes once); ``triggers``, the votes whose maximum reached
+        ``threshold`` (each walks); ``clear_steps``, the positions the
+        clearing walks visit (both directions, the seed in each, up to and
+        including each end); ``lines``, the lines kept. The kernel counts
+        the same four: equal counts mean the same trajectory.
+    """
     binary = np.asarray(binary)
     h, w = binary.shape
     numangle, numrho, cos_t, sin_t = _hough_setup((h, w), rho, theta)
@@ -403,6 +484,7 @@ def _hough_p_plain(binary, rho, theta, threshold, line_length, line_gap):
 
     def clear(px, py, dx, dy, xflag, end, cleared):  # up to ``end``
         while True:
+            n_clear[0] += 1
             j1, i1 = (px, py >> shift) if xflag else (px >> shift, py)
             k = i1 * w + j1
             if mask[k]:
@@ -414,6 +496,8 @@ def _hough_p_plain(binary, rho, theta, threshold, line_length, line_gap):
             py += dy
 
     lines = []
+    n_voters = n_triggers = 0
+    n_clear = [0]
     chunk = 1 << 15
     for c0 in range(0, len(vx), chunk):
         cx, cy = vx[c0:c0 + chunk], vy[c0:c0 + chunk]
@@ -421,12 +505,14 @@ def _hough_p_plain(binary, rho, theta, threshold, line_length, line_gap):
         for j, (x, y) in enumerate(zip(cx.tolist(), cy.tolist())):
             if not mask[y * w + x]:
                 continue  # taken by an earlier line
+            n_voters += 1
             idx = cbins[j]
             votes = acc[idx]
             votes += 1
             acc[idx] = votes
             if votes.max() < threshold:
                 continue
+            n_triggers += 1
             xflag, dx0, dy0 = steps[int(votes.argmax())]  # the first maximum
             x0, y0 = (x, (y << shift) + half) if xflag else ((x << shift) + half, y)
             ends = (walk(x0, y0, dx0, dy0, xflag), walk(x0, y0, -dx0, -dy0, xflag))
@@ -439,38 +525,71 @@ def _hough_p_plain(binary, rho, theta, threshold, line_length, line_gap):
                 cl = np.array(cleared, dtype=np.int64)
                 np.subtract.at(acc, bins(cl[:, 0], cl[:, 1]).ravel(), 1)
                 lines.append((*ends[0], *ends[1]))
+    if counters is not None:
+        counters.update(zip(HOUGH_COUNTERS, (n_voters, n_triggers, n_clear[0],
+                                             len(lines))))
     return np.array(lines, dtype=np.int32).reshape(-1, 4)
 
 
-def hough_lines_p(binary, rho, theta, threshold, min_line_length, max_line_gap):
+def hough_lines_p(binary, rho, theta, threshold, min_line_length, max_line_gap,
+                  counters=None):
     """``cv2.HoughLinesP(binary, rho, theta, threshold, minLineLength=...,
     maxLineGap=...)`` of a (h, w) uint8 tensor: (n, 4) int32 numpy lines
-    in OpenCV's order. On a CUDA tensor it launches ``HOUGH_P``
-    (``ops/csrc/hough_p.cu``), on a CPU tensor it runs ``_hough_p_plain``."""
+    in OpenCV's order. On a CUDA tensor it launches ``HOUGH_ORDER``
+    (``ops/csrc/hough_order.cu``, the visit order) and ``HOUGH_P``
+    (``ops/csrc/hough_p.cu``) once each, on a CPU tensor it runs
+    ``_hough_p_plain``. ``counters``, a dict if given, gets the
+    trajectory's counts (``_hough_p_plain``'s ``HOUGH_COUNTERS``) from
+    either."""
     if binary.dim() != 2 or binary.dtype != torch.uint8:
         raise ValueError(f"expected an (h, w) uint8 tensor, got "
                          f"{tuple(binary.shape)} {binary.dtype}")
     if binary.device.type == "cpu":
         return _hough_p_plain(binary.numpy(), rho, theta, threshold,
-                              min_line_length, max_line_gap)
+                              min_line_length, max_line_gap, counters)
     if binary.device.type != "cuda":
         raise ValueError(f"hough_lines_p runs on cpu or cuda, not "
                          f"{binary.device}")
     return _hough_p_cuda(binary, rho, theta, threshold, min_line_length,
-                         max_line_gap)
+                         max_line_gap, counters)
 
 
-def _hough_p_cuda(binary, rho, theta, threshold, line_length, line_gap):
-    """``hough_lines_p`` on the card: one launch of ``HOUGH_P``."""
+def _hough_p_cuda(binary, rho, theta, threshold, line_length, line_gap,
+                  counters=None):
+    """``hough_lines_p`` on the card: one launch of ``HOUGH_ORDER`` and one
+    of ``HOUGH_P``, then one read of the four counts."""
     args = _hough_p_args(binary, rho, theta, threshold, line_length, line_gap)
-    lines, n_lines = _hough_p_launch(args)
-    return lines[: int(n_lines.item())].cpu().numpy()
+    lines, stats = _hough_p_launch(args)
+    stats = stats.tolist()
+    if counters is not None:
+        counters.update(zip(HOUGH_COUNTERS, stats))
+    return lines[: stats[3]].cpu().numpy()
+
+
+def _hough_order_cuda(count, device):
+    """``_hough_order(count)`` drawn on the card by ``HOUGH_ORDER``: an
+    int64 tensor on ``device``."""
+    import ctypes
+
+    from auromat_tpu_torch.ops import _kernels
+
+    order = torch.empty(count, dtype=torch.int64, device=device)
+    work = torch.empty(4 * count + 3 + (count + 1) // 1024, dtype=torch.int32,
+                       device=device)
+    P = ctypes.c_void_p
+    _kernels.HOUGH_ORDER(count, P(order.data_ptr()), P(work.data_ptr()),
+                         work.numel(),
+                         P(torch.cuda.current_stream(device).cuda_stream))
+    return order
 
 
 def _hough_p_args(binary, rho, theta, threshold, line_length, line_gap):
     """The kernel's arguments as a dict: the visited (x, y) pairs in
-    OpenCV's order (the order drawn on the host), the mask the walks clear,
-    the zeroed accumulator, the float32 trig table, the outputs."""
+    OpenCV's order (the set pixels from ``torch.nonzero``, the order from
+    ``HOUGH_ORDER``: nothing of the count's size on the host), the mask the
+    walks clear, the zeroed accumulator, the float32 trig table, the
+    scratch list of a kept line's pixels, the outputs (lines, and the four
+    counts as int64)."""
     from auromat_tpu_torch.ops import _kernels
 
     h, w = binary.shape
@@ -479,10 +598,18 @@ def _hough_p_args(binary, rho, theta, threshold, line_length, line_gap):
     if numangle > _kernels.HOUGH_P_THREADS:
         raise ValueError(f"hough_lines_p on the card takes at most "
                          f"{_kernels.HOUGH_P_THREADS} angles, not {numangle}")
+    if max(h, w) > _kernels.HOUGH_P_MAX_SIDE:
+        raise ValueError(f"hough_lines_p on the card takes sides of at most "
+                         f"{_kernels.HOUGH_P_MAX_SIDE} pixels, not {w}x{h}")
     binary = binary.contiguous()
     nz = torch.nonzero(binary)  # raster order, as OpenCV collects them
     count = nz.shape[0]
-    order = torch.from_numpy(_hough_order(count)).to(dev)
+    # the kernel keeps a bin's votes in 16 bits of its reduction key: at
+    # most the candidates, or the pixels of one strip of width rho
+    if count >= 1 << 16 and max(h, w) * (2 * max(rho, 1.0) + 1) >= 1 << 16:
+        raise ValueError(f"hough_lines_p on the card: {count} candidates at "
+                         f"rho {rho} on {w}x{h} may put 2^16 votes in a bin")
+    order = _hough_order_cuda(count, dev)
     return {"pts": nz[order].flip(1).to(torch.int32).contiguous(),
             "count": count, "mask": (binary != 0).to(torch.uint8),
             "width": w, "height": h,
@@ -493,12 +620,15 @@ def _hough_p_args(binary, rho, theta, threshold, line_length, line_gap):
             "line_gap": int(line_gap),
             "lines": torch.empty((max(count, 1), 4), dtype=torch.int32,
                                  device=dev),
-            "n_lines": torch.zeros(1, dtype=torch.int32, device=dev)}
+            "list": torch.empty(2 * (w + h) + 2, dtype=torch.int32, device=dev),
+            "stats": torch.zeros(4, dtype=torch.int64, device=dev)}
 
 
 def _hough_p_launch(a):
     """Launch ``HOUGH_P`` on ``_hough_p_args``' dict (its mask and
-    accumulator are changed); returns (lines, n_lines) on the card."""
+    accumulator are changed); returns (lines, counts) on the card, the
+    counts in ``HOUGH_COUNTERS``' order (the fourth is the number of
+    lines)."""
     import ctypes
 
     from auromat_tpu_torch.ops import _kernels
@@ -509,9 +639,10 @@ def _hough_p_launch(a):
                      P(a["acc"].data_ptr()), a["numangle"], a["numrho"],
                      P(a["trig"].data_ptr()), a["threshold"],
                      a["line_length"], a["line_gap"],
-                     P(a["lines"].data_ptr()), P(a["n_lines"].data_ptr()),
+                     P(a["lines"].data_ptr()), P(a["list"].data_ptr()),
+                     P(a["stats"].data_ptr()),
                      P(torch.cuda.current_stream(a["mask"].device).cuda_stream))
-    return a["lines"], a["n_lines"]
+    return a["lines"], a["stats"]
 
 
 def _max_size_rectangle(mat):

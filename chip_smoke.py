@@ -177,10 +177,17 @@ constellation overlays), and checks them:
     card against the host (counts equal, sums within 1e-12 relative),
     timed; ``io.fits.get_catalog_stars('bright')`` and
     ``recompute_xyls_pixel_positions`` on the card against the CPU;
-    HOUGH_P (``ops/csrc/hough_p.cu``) against ``_hough_p_plain`` on
-    seeded 240x320 frames at thresholds 200 and 60 and on the star-field
-    frame's Hough input (the same lines in the same order), timed (CUDA
-    events) beside its bound: a kernel row of its own; the path's masks
+    HOUGH_P (``ops/csrc/hough_p.cu``) against ``_hough_p_plain`` (the
+    same lines in the same order and the same four trajectory counts:
+    voters, triggers, clearing steps, lines) on seeded 240x320 frames at
+    thresholds 200 and 60, on the stress frames (``hough_stress_frame``),
+    on the star-field frame's Hough input and on both checked-in frames'
+    Hough inputs (tests/resources/hough_input_*.npz); HOUGH_ORDER
+    (``ops/csrc/hough_order.cu``, the visit order) against
+    ``_hough_order`` at small counts and at each of those inputs' counts;
+    both kernels timed (CUDA events) beside their bounds on the star field
+    (3 launches each on the path: the main path's rows) and on both frames
+    (rows of their own), and ``hough_lines_p``'s wall time; the path's masks
     equal ``mask_starfield`` on the CPU (pixels and sigma); the masking's
     wall time on the card and the CPU and its device time (profiler);
 27. the drawing layer's numbers on the card against the CPU, on the seeded
@@ -205,8 +212,11 @@ fixed-point elevation) sums given the cell indices, and for K3, whose
 function starts from coordinates, the chain of float64 ``bin_indices``,
 the valid samples' data (NaN zeroed) and that ``index_add_`` (the
 ``index_add_`` alone is kept as ``library_ms_given_indices``). The port
-never calls them. HOUGH_P's row has no library call (``library_ms`` null):
-no PyTorch call computes OpenCV's probabilistic Hough transform.
+never calls them. The rows of HOUGH_P and HOUGH_ORDER have no library
+call (``library_ms`` null): no PyTorch call computes OpenCV's
+probabilistic Hough transform or draws OpenCV's RNG; their bounds count
+the visit order's (x, y) pairs, the mask and the lines (HOUGH_P), and the
+order's int64 indices (HOUGH_ORDER).
 
 Prints one line per phase, then the card's line, a JSON line of
 per-kernel results, and as the last line ``{"ok": true, "device":
@@ -2289,7 +2299,7 @@ def solving_phase(torch, np, card):
 
     si = stand_ins()
     dev = torch.device("cuda")
-    k1, hp = _kernels.GEOREGRID_BIN, _kernels.HOUGH_P
+    k1, hp, ho = _kernels.GEOREGRID_BIN, _kernels.HOUGH_P, _kernels.HOUGH_ORDER
     frame = iss_frame(np)
     sky = starfield_frame(np)
     date = datetime.datetime.strptime(ISS_DATE, "%Y-%m-%dT%H:%M:%S.%f")
@@ -2332,12 +2342,12 @@ def solving_phase(torch, np, card):
         kw = dict(tle_path=tle_path, mask=True, device="cuda",
                   solve_field=fake, scale_range=(40.0, 60.0))
         torch.cuda.synchronize()
-        hp.launches = 0
+        hp.launches = ho.launches = 0
         t0 = time.perf_counter()
         res = spacecraft.solve_sequence(images, wcs_dir, **kw)
         torch.cuda.synchronize()
         seq_ms = (time.perf_counter() - t0) * 1e3
-        hough_launches = hp.launches
+        hough_launches = {"HOUGH_P": hp.launches, "HOUGH_ORDER": ho.launches}
         n_first = len(si.solver_calls(tmp.name))
         hpos = np.array(fits.get_spacecraft_position(real_header))
         dists = []
@@ -2357,11 +2367,12 @@ def solving_phase(torch, np, card):
         if n_first != 3 or n_again != 0 or again != res:
             raise AssertionError(f"solve_sequence: {n_first} solver calls, "
                                  f"{n_again} on the resumed run")
-        if hough_launches != 3 or hp.launches != 3 or len(path_masks) != 3:
-            raise AssertionError(f"solve_sequence(mask=True): HOUGH_P "
-                                 f"launched {hough_launches} times for 3 "
-                                 f"frames ({hp.launches} after the resumed "
-                                 f"run), {len(path_masks)} masks")
+        if (list(hough_launches.values()) != [3, 3] or hp.launches != 3
+                or ho.launches != 3 or len(path_masks) != 3):
+            raise AssertionError(f"solve_sequence(mask=True): launches "
+                                 f"{hough_launches} for 3 frames "
+                                 f"({hp.launches}, {ho.launches} after the "
+                                 f"resumed run), {len(path_masks)} masks")
         # the timeout kill: a solver that sleeps past a 2 s timeout
         slow = si.fake_solve_field(tmp.name, solved_src, sleep=60)
         t0 = time.perf_counter()
@@ -2389,7 +2400,7 @@ def solving_phase(torch, np, card):
           f"the seeded 4256x2832 star-field frame (numpy stand-ins for PIL's "
           f"load_image/save_image and the EXIF time) with a stand-in "
           f"solve-field and the fitted ISS TLE: mask_starfield on the card "
-          f"for each frame, {hough_launches} launches of HOUGH_P, 3 "
+          f"for each frame, {hough_launches} launches, 3 "
           f"solver calls, 3 headers with NORADID 25544, IMAGEW/IMAGEH "
           f"4256x2832, SGP4 positions {max(dists):.3f} km from the real "
           f"header's, {seq_ms:.1f} ms wall; resumed: 0 solver calls; a "
@@ -2509,8 +2520,8 @@ def solving_phase(torch, np, card):
                        f"-> {r.img.shape[0]}x{r.img.shape[1]}",
                        "auromat_tpu_torch/ops/csrc/georegrid_bin.cu",
                        "auromat_tpu/ops/georegrid.py:65", launches,
-                       *on_solved["K1"]),
-            masking_phase(torch, np, card, sky, path_masks, hough_launches)]
+                       *on_solved["K1"])] + \
+        masking_phase(torch, np, card, sky, path_masks, hough_launches)
 
 
 def hough_frame(np, seed):
@@ -2528,66 +2539,217 @@ def hough_frame(np, seed):
     return img
 
 
+HOUGH_FRAMES = ("ISS030-E-102170_dc", "ISS029-E-8492")  # checked-in frames
+
+
+def hough_input(np, name):
+    """The Hough input (a 2832x4256 0/255 uint8 array) ``mask_starfield``
+    computes for the checked-in frame ``name`` (tests/resources/
+    hough_input_<name>.npz, packed bits; the card's machine cannot decode
+    the JPEG)."""
+    with np.load(os.path.join(RES, f"hough_input_{name}.npz")) as z:
+        shape = tuple(int(n) for n in z["shape"])
+        bits = np.unpackbits(z["bits"], count=shape[0] * shape[1])
+    return bits.reshape(shape) * np.uint8(255)
+
+
+# HOUGH_P's stress frames: name -> (threshold, minLineLength, maxLineGap)
+HOUGH_STRESS = {"segments": (12, 40, 4), "octants": (40, 64, 4),
+                "gaps": (30, 60, 4), "borders": (40, 50, 4),
+                "same_bin": (20, 30, 2)}
+
+
+def hough_stress_frame(np, name):
+    """A seeded 0/255 frame that drives one of HOUGH_P's hard cases (its
+    Hough arguments are ``HOUGH_STRESS[name]``): ``segments``, ~400 short
+    segments (8-24 px) that reach the threshold and keep no line;
+    ``octants``, 32 lines of 70-140 px from the centre in every direction
+    (all eight octants, both ways); ``gaps``, dashed lines whose gaps are
+    exactly 4 (bridged at maxLineGap 4) and 5 (not bridged); ``borders``,
+    lines on every border row and column and diagonals into the corners;
+    ``same_bin``, thick bands and solid blocks (many candidates of one
+    window in one accumulator bin). Each over 1-3% random pixels."""
+    from auromat_tpu_torch.utils import line_pixels
+
+    seed = sorted(HOUGH_STRESS).index(name) + 11
+    rng = np.random.default_rng(SEED + seed)
+    h, w = 240, 320
+    img = (rng.random((h, w)) < 0.02).astype(np.uint8)
+    ends = []
+    if name == "segments":
+        for _ in range(400):
+            x0, y0 = rng.integers(0, w), rng.integers(0, h)
+            a, n = rng.uniform(0, 2 * np.pi), rng.integers(8, 25)
+            ends.append((x0, y0, int(np.clip(x0 + n * np.cos(a), 0, w - 1)),
+                         int(np.clip(y0 + n * np.sin(a), 0, h - 1))))
+    elif name == "octants":
+        for k in range(32):
+            a = k * np.pi / 16 + rng.uniform(0.02, 0.15)
+            n = rng.integers(70, 115)
+            x0, y0 = w // 2 + rng.integers(-8, 9), h // 2 + rng.integers(-8, 9)
+            ends.append((x0, y0, int(np.clip(x0 + n * np.cos(a), 0, w - 1)),
+                         int(np.clip(y0 + n * np.sin(a), 0, h - 1))))
+    elif name == "gaps":
+        for k, gap in enumerate((4, 5, 4, 5, 4, 5)):
+            y = 20 + 38 * k
+            on = np.zeros(w, dtype=bool)
+            for x in range(5, w - 5, 12 + gap):
+                on[x:x + 12] = True
+            img[y, 5:w - 5] = on[5:w - 5]
+            ends.append((10 + 3 * k, 12 + 30 * k, 300 - 5 * k, 40 + 30 * k)
+                        if k % 2 else (40 * k + 8, 2, 40 * k + 60, h - 3))
+    elif name == "borders":
+        ends += [(0, 0, w - 1, 0), (0, h - 1, w - 1, h - 1), (0, 0, 0, h - 1),
+                 (w - 1, 0, w - 1, h - 1), (0, 0, h - 1, h - 1),
+                 (w - 1, 0, w - h, h - 1), (0, 60, 100, 0), (w - 1, 150, 200, h - 1)]
+    elif name == "same_bin":
+        img[30:70, 40:80] = 1
+        img[150:160, 20:300] = 1
+        img[20:220, 200:206] = 1
+        img[100:140, 100:180] = rng.random((40, 80)) < 0.6
+        ends += [(0, 230, w - 1, 180), (10, 10, 300, 120)]
+    else:
+        raise ValueError(f"no stress frame {name!r}")
+    for e in ends:
+        xs, ys = line_pixels(*e)
+        img[ys, xs] = 1
+    return img * np.uint8(255)
+
+
 def masking_phase(torch, np, card, sky, path_masks, launches):
-    """Phase 26, the masking: HOUGH_P against ``_hough_p_plain`` on small
-    seeded frames and on the star-field frame's Hough input, and timed;
-    the masks ``solve_sequence`` made on the card against
-    ``mask_starfield`` on the CPU; the masking's wall and device time on
-    the card and its wall time on the CPU. Returns HOUGH_P's kernel row."""
+    """Phase 26, the masking: HOUGH_P against ``_hough_p_plain`` (lines and
+    the four counts) on small seeded frames, the stress frames, the
+    star-field frame's Hough input and both checked-in frames' Hough
+    inputs; HOUGH_ORDER against ``_hough_order``; both kernels timed on the
+    star field and on the frames; the masks ``solve_sequence`` made on the
+    card against ``mask_starfield`` on the CPU; the masking's wall and
+    device time on the card and its wall time on the CPU. Returns the
+    kernel rows of HOUGH_P and HOUGH_ORDER (the star field's, on the main
+    path, then each frame's)."""
     import math
 
+    from auromat_tpu_torch.ops import _kernels
     from auromat_tpu_torch.solving import masking
 
     dev = torch.device("cuda")
     args = (1, math.pi / 180)
+    kernels = (_kernels.HOUGH_P, _kernels.HOUGH_ORDER)
+
+    def held(what, img, thr, length, gap):
+        """HOUGH_P on the card == the plain version, lines and counts;
+        (lines, counts, plain ms, {kernel: launches of the call})."""
+        want_counts, got_counts = {}, {}
+        t0 = time.perf_counter()
+        want = masking._hough_p_plain(img, *args, thr, length, gap,
+                                      want_counts)
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        binary = torch.from_numpy(img).to(dev)
+        for k in kernels:
+            k.launches = 0
+        got = masking.hough_lines_p(binary, *args, thr, length, gap,
+                                    got_counts)
+        calls = dict(zip(("HOUGH_P", "HOUGH_ORDER"),
+                         (k.launches for k in kernels)))
+        if not (np.array_equal(got, want) and got_counts == want_counts):
+            raise AssertionError(f"HOUGH_P on {what}: {len(got)} lines, "
+                                 f"counts {got_counts}; the plain version "
+                                 f"{len(want)} lines, {want_counts}")
+        if list(calls.values()) != [1, 1]:
+            raise AssertionError(f"hough_lines_p on {what}: launches {calls}")
+        return want, want_counts, plain_ms, calls
+
     n_small = 0
     for seed in (1, 2, 3):
-        img = hough_frame(np, seed)
         for thr, length in ((200, 100), (60, 30)):
-            want = masking._hough_p_plain(img, *args, thr, length, 4)
-            got = masking.hough_lines_p(torch.from_numpy(img).to(dev), *args,
-                                        thr, length, 4)
-            if len(want) == 0 or not np.array_equal(got, want):
-                raise AssertionError(f"HOUGH_P on the seeded 240x320 frame "
-                                     f"{seed} (threshold {thr}): {len(got)} "
-                                     f"lines, the plain version {len(want)}")
+            want = held(f"the seeded 240x320 frame {seed} (threshold {thr})",
+                        hough_frame(np, seed), thr, length, 4)[0]
+            if len(want) == 0:
+                raise AssertionError(f"no line on the seeded frame {seed}")
             n_small += len(want)
+    stress = {}
+    for name, hargs in HOUGH_STRESS.items():
+        want, counts, _, _ = held(f"the stress frame {name!r}",
+                                  hough_stress_frame(np, name), *hargs)
+        stress[name] = f"{len(want)} lines / {counts['triggers']} triggers"
+    print(f"[26] HOUGH_P == _hough_p_plain (the same lines in the same "
+          f"order, the same voters, triggers, clearing steps and lines) on "
+          f"3 seeded 240x320 frames at thresholds 200 and 60 ({n_small} "
+          f"lines) and on the stress frames: {stress}", flush=True)
+    for count in (0, 1, 2, 3, 5, 1000, 8193):
+        got = masking._hough_order_cuda(count, dev).cpu().numpy()
+        if not np.array_equal(got, masking._hough_order(count)):
+            raise AssertionError(f"HOUGH_ORDER != _hough_order at {count}")
+
+    def kernel_rows(what, img, hough_launches):
+        """HOUGH_P and HOUGH_ORDER on ``img`` (threshold 200, length 100,
+        gap 4) held and timed: CUDA-event medians of 5, a fresh mask and
+        accumulator for each HOUGH_P run; returns their two rows."""
+        want, counts, plain_ms, calls = held(what, img, 200, 100, 4)
+        binary = torch.from_numpy(img).to(dev)
+        a = masking._hough_p_args(binary, *args, 200, 100, 4)
+        mask0 = a["mask"].clone()
+        runs = []
+        for _ in range(5):
+            a["mask"].copy_(mask0)
+            a["acc"].zero_()
+            runs.append(cuda_ms(torch, lambda: masking._hough_p_launch(a), 1))
+        count = a["count"]
+        t0 = time.perf_counter()
+        order_want = masking._hough_order(count)
+        order_plain_ms = (time.perf_counter() - t0) * 1e3
+        order = masking._hough_order_cuda(count, dev)
+        if not np.array_equal(order.cpu().numpy(), order_want):
+            raise AssertionError(f"HOUGH_ORDER != _hough_order at {count}")
+        order_runs = [cuda_ms(torch, lambda: masking._hough_order_cuda(
+            count, dev), 1) for _ in range(5)]
+
+        def wrapper():
+            out = masking.hough_lines_p(binary, *args, 200, 100, 4)
+            torch.cuda.synchronize()
+            return out
+
+        wrap_ms = wall_ms(torch, wrapper, N_WALL)
+        k_ms, o_ms = statistics.median(runs), statistics.median(order_runs)
+        p_bytes = 8 * count + img.size + 16 * len(want) + 8 * a["numangle"]
+        print(f"[26] {what}: {count} candidate pixels, {len(want)} lines, "
+              f"counts {counts} == plain; HOUGH_P {k_ms:.2f} ms (CUDA "
+              f"events, median of 5: {[round(r, 2) for r in runs]}), plain "
+              f"(numpy, host) {plain_ms:.1f} ms, bound "
+              f"{bound_ms(p_bytes):.4f} ms; HOUGH_ORDER {o_ms:.3f} ms "
+              f"({[round(r, 3) for r in order_runs]}) == _hough_order "
+              f"({order_plain_ms:.1f} ms on the host), bound "
+              f"{bound_ms(8 * count):.5f} ms; hough_lines_p wall "
+              f"{wrap_ms:.1f} ms (median of {N_WALL}); launches "
+              f"{hough_launches or calls}; on {card}", flush=True)
+        n_p = (hough_launches or calls)["HOUGH_P"]
+        n_o = (hough_launches or calls)["HOUGH_ORDER"]
+        return [
+            {"name": f"hough_p (HOUGH_P), cv2.HoughLinesP's algorithm, on "
+                     f"{what} (no TPU kernel: the JAX package calls "
+                     f"OpenCV on the host)",
+             "route": "cuda", "source": "auromat_tpu_torch/ops/csrc/hough_p.cu",
+             "replaces": "auromat_tpu/solving/masking.py:221",
+             "launches": n_p, "max_abs_err": 0.0, "ms": k_ms,
+             "plain_ms": plain_ms, "bound_ms": bound_ms(p_bytes),
+             "bound_by": "bytes", "library_ms": None},
+            {"name": f"hough_order (HOUGH_ORDER), HoughLinesP's visit order "
+                     f"of {count} pixels, on {what} (no TPU kernel: OpenCV's "
+                     f"RNG on the host)",
+             "route": "cuda",
+             "source": "auromat_tpu_torch/ops/csrc/hough_order.cu",
+             "replaces": "auromat_tpu/solving/masking.py:221",
+             "launches": n_o, "max_abs_err": 0.0, "ms": o_ms,
+             "plain_ms": order_plain_ms, "bound_ms": bound_ms(8 * count),
+             "bound_by": "bytes", "library_ms": None}]
+
     gray = masking._gray(torch.from_numpy(sky).to(dev), None)
     mask, _ = masking._dark_area_mask(gray, True)
-    binary = masking._line_candidates(gray * mask, mask)
-    host = binary.cpu().numpy()
-    t0 = time.perf_counter()
-    want = masking._hough_p_plain(host, *args, 200, 100, 4)
-    plain_ms = (time.perf_counter() - t0) * 1e3
-    got = masking.hough_lines_p(binary, *args, 200, 100, 4)
-    if len(want) == 0 or not np.array_equal(got, want):
-        raise AssertionError(f"HOUGH_P on the star-field frame: {len(got)} "
-                             f"lines, the plain version {len(want)}")
-    err = float(np.abs(got.astype(np.int64) - want).max())
-    # the kernel alone: a fresh mask and accumulator for each run
-    a = masking._hough_p_args(binary, *args, 200, 100, 4)
-    mask0 = a["mask"].clone()
-
-    def launch():
-        masking._hough_p_launch(a)
-
-    runs = []
-    for _ in range(5):
-        a["mask"].copy_(mask0)
-        a["acc"].zero_()
-        runs.append(cuda_ms(torch, launch, 1))
-    k_ms = statistics.median(runs)
-    n_bytes = 8 * a["count"] + host.size + 16 * len(want) + 8 * a["numangle"]
-    print(f"[26] HOUGH_P == _hough_p_plain (the same lines in the same "
-          f"order) on 3 seeded 240x320 frames at thresholds 200 and 60 "
-          f"({n_small} lines) and on the star-field frame's Hough input "
-          f"({a['count']} candidate pixels, {len(want)} lines); on the "
-          f"path: {launches} launches (one a frame); kernel "
-          f"{k_ms:.1f} ms (CUDA events, median of 5: "
-          f"{[round(r, 1) for r in runs]}), plain (numpy, host) "
-          f"{plain_ms:.1f} ms, bound {bound_ms(n_bytes):.4f} ms ({n_bytes} "
-          f"bytes at 3.35 TB/s: the visit order, the mask, the lines); on "
-          f"{card}", flush=True)
+    host = masking._line_candidates(gray * mask, mask).cpu().numpy()
+    rows = kernel_rows("the star-field frame's Hough input (the path's "
+                       "shape)", host, launches)
+    for name in HOUGH_FRAMES:
+        rows += kernel_rows(f"{name}'s Hough input", hough_input(np, name),
+                            None)
 
     # the masks the path made, against mask_starfield on the CPU
     t0 = time.perf_counter()
@@ -2610,14 +2772,7 @@ def masking_phase(torch, np, card, sky, path_masks, launches):
           f"starfield {cmask.mean():.4f} of the frame; wall ms on the card "
           f"{card_ms:.1f} (median of {N_WALL}; device: {busy_txt}), on the "
           f"CPU {cpu_ms:.1f}; on {card}", flush=True)
-    return {"name": "hough_p (HOUGH_P), cv2.HoughLinesP's algorithm on the "
-                    "solving path's masking (no TPU kernel: the JAX package "
-                    "calls OpenCV on the host)",
-            "route": "cuda", "source": "auromat_tpu_torch/ops/csrc/hough_p.cu",
-            "replaces": "auromat_tpu/solving/masking.py:221",
-            "launches": launches, "max_abs_err": err, "ms": k_ms,
-            "plain_ms": plain_ms, "bound_ms": bound_ms(n_bytes),
-            "bound_by": "bytes", "library_ms": None}
+    return rows
 
 
 def drawing_phase(torch, np, card):
@@ -2791,7 +2946,7 @@ def main():
 
     # -- 2. build every kernel source at once; wait for K1's ---------------
     builds = start_builds([_kernels.GEOREGRID_BIN, _kernels.REGRID_BIN,
-                           _kernels.HOUGH_P])
+                           _kernels.HOUGH_P, _kernels.HOUGH_ORDER])
     kernels = {"K1": _kernels.GEOREGRID_BIN}
     for name, k in kernels.items():
         secs = builds[k.source].result()

@@ -63,11 +63,16 @@ only the port is installed:
   ``recompute_xyls_pixel_positions``, projected in float64 on the card,
   within 1e-9 px of the CPU's.
 * The star-field masking on the card: HOUGH_P (``ops/csrc/hough_p.cu``)
-  against ``_hough_p_plain`` on chip_smoke.py's seeded 240x320 frames at
-  thresholds 200 and 60 (the same lines in the same order, one launch a call) and its
-  refusal of more angles than its block has threads; ``mask_starfield``
-  of chip_smoke.py's seeded 4256x2832 star-field frame on the card equal
-  to the CPU's (pixels and sigma), HOUGH_P launched once.
+  against ``_hough_p_plain`` (the same lines in the same order, the same
+  four trajectory counts, one launch of HOUGH_P and one of HOUGH_ORDER a
+  call) on chip_smoke.py's seeded 240x320 frames at thresholds 200 and
+  60, on its stress frames and on both checked-in frames' Hough inputs,
+  and its refusal of more angles than its block has threads; HOUGH_ORDER
+  (``ops/csrc/hough_order.cu``) equal to ``_hough_order`` at counts from 0
+  to 910,556; ``hough_lines_p`` on a CUDA tensor with ``_hough_order``
+  made to raise (the order is drawn on the card); ``mask_starfield`` of
+  chip_smoke.py's seeded 4256x2832 star-field frame on the card equal to
+  the CPU's (pixels and sigma), each kernel launched once.
 * The drawing layer's numeric helpers on the card against the CPU, on a
   512x384 mapping of the scaled calibration: the KML overlay (its
   ``resample('mean')`` launches K1; KML text and RGBA equal), the horizon
@@ -1084,16 +1089,89 @@ def test_hough_p_gpu_matches_plain(cuda, seed, thr, length):
     from auromat_tpu_torch.solving import masking
 
     img = _chip_smoke().hough_frame(np, seed)
-    want = masking._hough_p_plain(img, 1, math.pi / 180, thr, length, 4)
-    before = _kernels.HOUGH_P.launches
+    want_counts, counts = {}, {}
+    want = masking._hough_p_plain(img, 1, math.pi / 180, thr, length, 4,
+                                  want_counts)
+    before = _hough_launches()
     got = masking.hough_lines_p(torch.from_numpy(img).to(cuda), 1,
-                                math.pi / 180, thr, length, 4)
-    assert _kernels.HOUGH_P.launches == before + 1
+                                math.pi / 180, thr, length, 4, counts)
+    assert _hough_launches() == [n + 1 for n in before]
     assert len(want) > 0 and got.dtype == np.int32
-    assert np.array_equal(got, want)
+    assert np.array_equal(got, want) and counts == want_counts
     with pytest.raises(ValueError, match="angles"):
         masking.hough_lines_p(torch.from_numpy(img).to(cuda), 1,
                               math.pi / 360, thr, length, 4)
+
+
+def _hough_launches():
+    return [_kernels.HOUGH_P.launches, _kernels.HOUGH_ORDER.launches]
+
+
+def _hough_on_card(cuda, img, thr, length, gap):
+    """HOUGH_P on the card against the plain version: the same lines in
+    the same order and the same four counts, one launch of each kernel."""
+    import math
+
+    from auromat_tpu_torch.solving import masking
+
+    want_counts, counts = {}, {}
+    want = masking._hough_p_plain(img, 1, math.pi / 180, thr, length, gap,
+                                  want_counts)
+    before = _hough_launches()
+    got = masking.hough_lines_p(torch.from_numpy(img).to(cuda), 1,
+                                math.pi / 180, thr, length, gap, counts)
+    assert _hough_launches() == [n + 1 for n in before]
+    assert np.array_equal(got, want) and counts == want_counts
+    return want, counts
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["segments", "octants", "gaps", "borders",
+                                  "same_bin"])
+def test_hough_p_gpu_stress_frames(cuda, name):
+    cs = _chip_smoke()
+    want, counts = _hough_on_card(cuda, cs.hough_stress_frame(np, name),
+                                  *cs.HOUGH_STRESS[name])
+    assert counts["lines"] == len(want) and counts["triggers"] > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["ISS030-E-102170_dc", "ISS029-E-8492"])
+def test_hough_p_gpu_checked_in_frames(cuda, name):
+    # the frames' Hough inputs: 376,447 and 910,556 candidates
+    want, counts = _hough_on_card(cuda, _chip_smoke().hough_input(np, name),
+                                  200, 100, 4)
+    assert len(want) == {"ISS030-E-102170_dc": 182, "ISS029-E-8492": 2}[name]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("count", [0, 1, 2, 3, 5, 1000, 8193, 376447, 910556])
+def test_hough_order_gpu_matches_plain(cuda, count):
+    from auromat_tpu_torch.solving import masking
+
+    before = _kernels.HOUGH_ORDER.launches
+    got = masking._hough_order_cuda(count, cuda)
+    assert _kernels.HOUGH_ORDER.launches == before + 1
+    assert got.device.type == "cuda" and got.dtype == torch.int64
+    assert np.array_equal(got.cpu().numpy(), masking._hough_order(count))
+
+
+@pytest.mark.gpu
+def test_hough_lines_p_gpu_draws_no_host_order(cuda, monkeypatch):
+    import math
+
+    from auromat_tpu_torch.solving import masking
+
+    img = _chip_smoke().hough_frame(np, 2)
+    want = masking._hough_p_plain(img, 1, math.pi / 180, 60, 30, 4)
+
+    def refuse(count):
+        raise AssertionError("the card's route drew the order on the host")
+
+    monkeypatch.setattr(masking, "_hough_order", refuse)
+    got = masking.hough_lines_p(torch.from_numpy(img).to(cuda), 1,
+                                math.pi / 180, 60, 30, 4)
+    assert len(want) > 0 and np.array_equal(got, want)
 
 
 @pytest.mark.gpu
@@ -1101,9 +1179,9 @@ def test_mask_starfield_gpu_matches_cpu(cuda):
     from auromat_tpu_torch.solving import masking
 
     frame = _chip_smoke().starfield_frame(np)
-    before = _kernels.HOUGH_P.launches
+    before = _hough_launches()
     mask, sigma = masking.mask_starfield(frame, device=cuda)
-    assert _kernels.HOUGH_P.launches == before + 1
+    assert _hough_launches() == [n + 1 for n in before]
     cmask, csigma = masking.mask_starfield(frame, device="cpu")
     assert np.array_equal(mask, cmask) and sigma == csigma
     assert 0.2 < mask.mean() < 0.8

@@ -15,8 +15,13 @@ reference's goldens.
   labelled subset of contours that ``mask_starfield`` traces.
 * ``_hough_p_plain`` (the plain version of the ``HOUGH_P`` kernel) equal
   to ``cv2.HoughLinesP`` line for line, in order, on chip_smoke.py's
-  seeded 240x320 frames at thresholds 200 and 60 and on both checked-in
-  frames' Hough inputs.
+  seeded 240x320 frames at thresholds 200 and 60, on its stress frames
+  (``hough_stress_frame``) and on both checked-in frames' Hough inputs;
+  its trajectory counters on those inputs (checked in as
+  tests/resources/hough_input_*.npz, equal to what the stages compute
+  from the JPEGs).
+* The visit order the order kernel's way (``_hough_draws`` by jump-ahead,
+  ``_hough_order_chains``) equal to OpenCV's loop (``_hough_order``).
 * ``mask_starfield(device="cpu")`` with cv2 unimportable on both frames:
   0 pixels from golden_masking_*.npz, equal to the JAX package's mask,
   the same sigma; and on chip_smoke.py's seeded 4256x2832 star-field
@@ -309,6 +314,74 @@ def test_hough_order_and_setup():
     numangle, numrho, c, s = masking._hough_setup((2832, 4256), 1, math.pi / 180)
     assert (numangle, numrho) == (180, 14177)
     assert c.dtype == s.dtype == np.float32 and c[0] == 1 and s[90] == 1
+
+
+@pytest.mark.parametrize("count", [0, 1, 2, 3, 5, 1000, 376447, 910556])
+def test_hough_order_from_draws_and_chains(count):
+    # the order kernel's two steps in numpy (jump-ahead draws, then the
+    # permutation's chains) against OpenCV's loop; the two large counts
+    # are the checked-in frames' candidate pixels
+    draws = masking._hough_draws(count)
+    assert draws.shape == (count,) and np.all(draws < count - np.arange(count))
+    order = masking._hough_order_chains(draws)
+    assert np.array_equal(order, masking._hough_order(count))
+
+
+def test_mwc_jump_ahead_matches_the_recurrence():
+    state, m32, states = (1 << 64) - 1, 0xFFFFFFFF, []
+    for _ in range(3000):
+        state = (state & m32) * 4164903690 + (state >> 32)
+        states.append(state)
+    assert [masking._mwc_state(n) for n in range(1, 3001)] == states
+    assert states[0] >= masking._RNG_MOD > max(states[1:])  # only s_1 >= m
+    for _ in range(3000, 10**6):
+        state = (state & m32) * 4164903690 + (state >> 32)
+    assert masking._mwc_state(10**6) == state
+
+
+@pytest.mark.parametrize("name", sorted(chip_smoke.HOUGH_STRESS))
+def test_hough_plain_matches_cv2_on_stress_frames(name):
+    thr, length, gap = chip_smoke.HOUGH_STRESS[name]
+    img = chip_smoke.hough_stress_frame(np, name)
+    lines = cv2.HoughLinesP(img.copy(), 1, math.pi / 180, thr,
+                            minLineLength=length, maxLineGap=gap)
+    want = np.zeros((0, 4), np.int32) if lines is None else lines.reshape(-1, 4)
+    counts = {}
+    got = masking._hough_p_plain(img, 1, math.pi / 180, thr, length, gap,
+                                 counts)
+    assert np.array_equal(got, want)
+    assert counts["lines"] == len(want) and counts["triggers"] >= len(want)
+    if name == "segments":  # short segments trigger and keep no line
+        assert counts["triggers"] > 1000 * max(counts["lines"], 1)
+    if name == "octants":  # lines of more than 64 px in every direction
+        d = want[:, 2:].astype(float) - want[:, :2]
+        octant = (np.arctan2(d[:, 1], d[:, 0]) % np.pi) // (np.pi / 4)
+        assert set(octant) == {0, 1, 2, 3} and np.hypot(*d.T).min() > 64
+
+
+@pytest.mark.parametrize("name", FRAMES)
+def test_hough_inputs_checked_in_match_the_jpegs(stages, name):
+    assert np.array_equal(chip_smoke.hough_input(np, name), stages[name][4])
+
+
+# visited pixels still set (voters), votes reaching the threshold
+# (triggers), positions the clearing walks visit (each direction from the
+# seed up to and including its end), lines kept: the counts of an
+# instrumented copy of the plain version on these inputs
+FRAME_COUNTS = {"ISS030-E-102170_dc": (376447, 128458, 26055, 426214, 182),
+                "ISS029-E-8492": (910556, 333681, 157492, 1333125, 2)}
+
+
+@pytest.mark.parametrize("name", FRAMES)
+def test_hough_counters_on_the_frames(name):
+    hin = chip_smoke.hough_input(np, name)
+    counts = {}
+    lines = masking.hough_lines_p(t(hin), 1, math.pi / 180, 200, 100, 4,
+                                  counters=counts)
+    assert int((hin > 0).sum()) == FRAME_COUNTS[name][0]
+    assert tuple(counts[k] for k in masking.HOUGH_COUNTERS) == \
+        FRAME_COUNTS[name][1:]
+    assert len(lines) == counts["lines"]
 
 
 def test_hough_lines_p_checks_its_input():

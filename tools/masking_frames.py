@@ -15,8 +15,10 @@ their lines are equal), the JAX package's ``mask_starfield`` (OpenCV) and
 the port's on the CPU.
 
 ``card`` prints, for each frame: HOUGH_P against ``_hough_p_plain`` on the
-Hough input (lines equal), the kernel's time (CUDA events, median of 5, a
-fresh mask and accumulator each run) and the wrapper's wall time, and
+Hough input (lines equal, and the four trajectory counts: voters,
+triggers, clearing steps, lines), the kernel's time (CUDA events, median
+of 5, a fresh mask and accumulator each run), HOUGH_ORDER's time (the
+visit order on the card, median of 5) and the wrapper's wall time, and
 ``mask_starfield(device='cuda')`` against the executed reference's
 golden_masking_*.npz (pixels apart, sigma), its wall time (median of 3).
 """
@@ -90,11 +92,13 @@ def card(folder):
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip(), flush=True)
     _kernels.HOUGH_P.build()
+    _kernels.HOUGH_ORDER.build()
     for name in FRAMES:
         hin = np.load(os.path.join(folder, f"{name}_hough.npz"))["b"]
-        want = masking._hough_p_plain(hin, *HOUGH)
+        want_counts, counts = {}, {}
+        want = masking._hough_p_plain(hin, *HOUGH, counters=want_counts)
         b = torch.from_numpy(hin).to(dev)
-        got = masking.hough_lines_p(b, *HOUGH)
+        got = masking.hough_lines_p(b, *HOUGH, counters=counts)
         a = masking._hough_p_args(b, *HOUGH)
         mask0 = a["mask"].clone()
         runs = []
@@ -108,6 +112,15 @@ def card(folder):
             end.record()
             end.synchronize()
             runs.append(start.elapsed_time(end))
+        order_runs = []
+        for _ in range(5):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            masking._hough_order_cuda(a["count"], dev)
+            end.record()
+            end.synchronize()
+            order_runs.append(start.elapsed_time(end))
 
         def wrapper():
             out = masking.hough_lines_p(b, *HOUGH)
@@ -126,10 +139,11 @@ def card(folder):
         mask_card()
         wall_s, (m, sigma) = median_s(mask_card)
         print(f"{name}: HOUGH_P == _hough_p_plain: "
-              f"{np.array_equal(got, want)} ({len(got)} lines, "
-              f"{a['count']} candidate pixels); kernel "
-              f"{statistics.median(runs):.1f} ms (runs "
-              f"{[round(r, 1) for r in runs]}), wrapper wall "
+              f"{np.array_equal(got, want) and counts == want_counts} "
+              f"({len(got)} lines, {a['count']} candidate pixels, counts "
+              f"{counts}); kernel {statistics.median(runs):.1f} ms (runs "
+              f"{[round(r, 1) for r in runs]}), HOUGH_ORDER "
+              f"{statistics.median(order_runs):.3f} ms, wrapper wall "
               f"{wrap_s * 1e3:.1f} ms; mask_starfield on the card: "
               f"{int((m != golden['mask']).sum())} pixels from the golden, "
               f"sigma {sigma} (golden {float(golden['sigma'])}), wall "
