@@ -151,3 +151,17 @@ HOUGH_P = CudaKernel("hough_p.cu", "hough_p_launch",
 # order (OpenCV's RNG and its swap-with-last permutation) on the card
 HOUGH_ORDER = CudaKernel("hough_order.cu", "hough_order_launch",
                          [ctypes.c_int, _P, _P, ctypes.c_longlong, _P])
+# CCL8 / CCL4 (solving/masking.py::ccl): connected components of a binary
+# image, each pixel labelled with its component's first pixel in raster
+# order; the star-field mask's components and holes, which the JAX package
+# finds with cv2.findContours on the host (no TPU kernel)
+_CCL_ARGS = [_P, ctypes.c_int, ctypes.c_int, ctypes.c_int, _P, _P]
+CCL8 = CudaKernel("ccl.cu", "ccl8_launch", _CCL_ARGS)
+CCL4 = CudaKernel("ccl.cu", "ccl4_launch", _CCL_ARGS)
+# CONTOUR_TRACE (solving/masking.py::contour_trace): the outer border from
+# each root, with its doubled area, box, length and simple points
+# (cv2.findContours, cv2.contourArea, cv2.boundingRect on the host in the
+# JAX package); one thread a root, walking a bit-packed copy of the image
+CONTOUR_TRACE = CudaKernel("contour_trace.cu", "contour_trace_launch",
+                           [_P, ctypes.c_int, ctypes.c_int, _P, ctypes.c_int,
+                            _P, _P, _P, _P, _P, _P, _P, _P, _P])

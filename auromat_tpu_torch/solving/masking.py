@@ -27,12 +27,24 @@ half up (``k*k`` is odd: no ties), the 3x3 median of a 0/255 image as
 the rasters of lines and polygons (``utils.line_pixels``,
 ``utils.poly_fill_spans``) painted onto the image and reduced to blocks.
 
-The contours are host numpy. ``mask_starfield`` labels the hole-filled
-binary (8-connected foreground, holes 4-connected background, as
-``findContours(RETR_EXTERNAL)`` sees it: one label, one external contour)
-with ``scipy.ndimage`` and traces only the labels whose bounding box
-could hold a big contour (a contour's area is at most ``(w-1)(h-1)`` of
-its box), and those that could be the biggest.
+The contours are those of ``findContours(RETR_EXTERNAL)``: one external
+contour for each 8-connected component of the hole-filled binary (holes
+are the 4-connected zero components that touch no image edge). On a
+CUDA tensor the whole contour stage runs on the card and nothing of the
+binary goes to the host (``external_contours``, ``_label_mask``): CCL4
+labels the zero pixels (``ops/csrc/ccl.cu``, ``ops._kernels.CCL4``), the
+holes are filled with torch, CCL8 labels the filled image (each pixel
+holds its component's first pixel in raster order, the contour's start),
+CONTOUR_TRACE (``ops/csrc/contour_trace.cu``) follows each outer border
+on the binary and measures it, and the big contours are painted as their
+filled labels, which are the pixels ``fillPoly`` sets for them. On a CPU
+tensor ``mask_starfield`` labels the filled binary with ``scipy.ndimage``
+and traces only the labels whose bounding box could hold a big contour
+(a contour's area is at most ``(w-1)(h-1)`` of its box) and those that
+could be the biggest (``_big_contours``), then rasters their polygons
+(``_contour_mask``); ``_ccl_plain`` and ``_contour_trace_plain`` are the
+kernels' plain versions, which ``external_contours`` runs on a CPU
+tensor.
 
 The probabilistic Hough transform is ``cv2.HoughLinesP``'s algorithm:
 set pixels visited in the order of OpenCV's RNG (seed 2^64-1, the visit
@@ -48,6 +60,7 @@ the trajectory (voters, triggers, clearing steps, lines).
 """
 
 import math
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -267,6 +280,238 @@ def _big_contours(binary, big_area_ratio=0.000013):
     contours = [traced[i][1] for i in keys]
     areas = np.array([traced[i][2] for i in keys])
     return contours, areas, areas > big
+
+
+def _check_binary(binary, what):
+    if binary.dim() != 2 or binary.dtype != torch.uint8:
+        raise ValueError(f"{what}: expected an (h, w) uint8 tensor, got "
+                         f"{tuple(binary.shape)} {binary.dtype}")
+    if binary.numel() >= 1 << 31:
+        raise ValueError(f"{what}: {tuple(binary.shape)} has 2^31 pixels "
+                         f"or more (int32 flat indices)")
+    if binary.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{what} runs on cpu or cuda, not {binary.device}")
+
+
+def _ccl_plain(binary, connectivity, fg=True):
+    """The plain version of CCL8 / CCL4 (``ops/csrc/ccl.cu``): an int32
+    (h, w) array holding, at each pixel that is non-zero (``fg``) or zero
+    (not ``fg``), the flat index ``y*w + x`` of the first pixel in raster
+    order of its 8- or 4-connected component of such pixels; -1 at every
+    other pixel. ``scipy.ndimage.label`` with the 3x3 or the cross
+    structure, each label mapped to its first pixel."""
+    from scipy import ndimage
+
+    if connectivity not in (4, 8):
+        raise ValueError(f"connectivity is {connectivity}, not 4 or 8")
+    on = (np.asarray(binary) != 0) == bool(fg)
+    structure = ndimage.generate_binary_structure(2, 2 if connectivity == 8
+                                                  else 1)
+    labels, n = ndimage.label(on, structure=structure)
+    flat = labels.ravel()
+    nz = np.flatnonzero(flat)
+    _, first = np.unique(flat[nz], return_index=True)  # first occurrences
+    roots = np.full(n + 1, -1, dtype=np.int32)
+    roots[1:] = nz[first]
+    return roots[labels]
+
+
+def ccl(binary, connectivity, fg=True):
+    """Connected components of a (h, w) uint8 tensor's non-zero (``fg``)
+    or zero pixels, 8- or 4-connected: an int32 (h, w) tensor holding at
+    each such pixel the flat index of its component's first pixel in
+    raster order (the root), -1 elsewhere. On a CUDA tensor it launches
+    ``CCL8`` or ``CCL4`` (``ops/csrc/ccl.cu``), on a CPU tensor it runs
+    ``_ccl_plain``."""
+    _check_binary(binary, "ccl")
+    if connectivity not in (4, 8):
+        raise ValueError(f"connectivity is {connectivity}, not 4 or 8")
+    if binary.device.type == "cpu":
+        return torch.from_numpy(_ccl_plain(binary.numpy(), connectivity, fg))
+    import ctypes
+
+    from auromat_tpu_torch.ops import _kernels
+
+    binary = binary.contiguous()
+    h, w = binary.shape
+    labels = torch.empty((h, w), dtype=torch.int32, device=binary.device)
+    P = ctypes.c_void_p
+    kernel = _kernels.CCL8 if connectivity == 8 else _kernels.CCL4
+    kernel(P(binary.data_ptr()), w, h, int(bool(fg)), P(labels.data_ptr()),
+           P(torch.cuda.current_stream(binary.device).cuda_stream))
+    return labels
+
+
+class Borders(NamedTuple):
+    """The outer borders traced from a list of roots, one entry a root in
+    the roots' order: twice the area (int64: ``cv2.contourArea`` of the
+    ``CHAIN_APPROX_SIMPLE`` contour, doubled, exact), the box (int32 (n, 4):
+    ``cv2.boundingRect``'s x, y, w, h), the chain's length (int64: the
+    ``CHAIN_APPROX_NONE`` points) and the count of its simple points
+    (int64), and the simple points themselves (int32 (sum of the counts,
+    2), x and y, each contour's in ``findContours``' order from its start)
+    or None."""
+    area2: torch.Tensor
+    box: torch.Tensor
+    length: torch.Tensor
+    count: torch.Tensor
+    points: Optional[torch.Tensor]
+
+
+def _contour_trace_plain(binary, roots, points=False):
+    """The plain version of CONTOUR_TRACE (``ops/csrc/contour_trace.cu``):
+    the outer border of ``binary`` (a (h, w) array, non-zero set) from each
+    root (flat indices of components' first pixels in raster order) by
+    ``trace_outer_borders``, reduced by ``contour_approx_simple``, measured
+    by ``_contour_area`` and ``bounding_rect``. A ``Borders`` of arrays."""
+    binary = np.asarray(binary)
+    h, w = binary.shape
+    roots = np.asarray(roots, dtype=np.int64).reshape(-1)
+    padded = np.zeros((h + 2, w + 2), dtype=np.uint8)
+    padded[1:-1, 1:-1] = binary != 0
+    starts = (roots // w + 1) * (w + 2) + roots % w + 1
+    n = len(roots)
+    area2, length, count = (np.zeros(n, dtype=np.int64) for _ in range(3))
+    box = np.zeros((n, 4), dtype=np.int32)
+    pts = []
+    for k, c in enumerate(trace_outer_borders(padded, starts)):
+        s = contour_approx_simple(c) - 1
+        area2[k] = int(2 * _contour_area(s))
+        box[k] = bounding_rect(s)
+        length[k], count[k] = len(c), len(s)
+        if points:
+            pts.append(s)
+    if points:
+        pts = (np.concatenate(pts).astype(np.int32) if pts
+               else np.zeros((0, 2), dtype=np.int32))
+    return Borders(area2, box, length, count, pts if points else None)
+
+
+def contour_trace(binary, roots, points=False):
+    """The outer borders of a (h, w) uint8 tensor's non-zero pixels traced
+    from ``roots`` (an int tensor of flat indices, each the first pixel in
+    raster order of an 8-connected component, or of the hole-filled
+    component around one): a ``Borders`` of tensors on ``binary``'s
+    device. On a CUDA tensor it launches ``CONTOUR_TRACE`` once, and once
+    more at the prefix sum of the counts when ``points``; on a CPU tensor
+    it runs ``_contour_trace_plain``."""
+    _check_binary(binary, "contour_trace")
+    if binary.device.type == "cpu":
+        out = _contour_trace_plain(binary.numpy(), roots.cpu().numpy(), points)
+        return Borders(*(None if a is None else torch.from_numpy(a)
+                         for a in out))
+    return _contour_trace_cuda(binary, roots, points)
+
+
+def _contour_trace_cuda(binary, roots, points=False, cycles=None):
+    """``contour_trace`` on the card. ``cycles``, an int64 tensor of one
+    entry a root if given, gets each thread's ``clock64()`` cycles of its
+    walk (of the first launch)."""
+    import ctypes
+
+    from auromat_tpu_torch.ops import _kernels
+
+    binary = binary.contiguous()
+    dev = binary.device
+    h, w = binary.shape
+    roots = roots.to(device=dev, dtype=torch.int32).contiguous()
+    n = roots.numel()
+    area2, length, count = (torch.empty(n, dtype=torch.int64, device=dev)
+                            for _ in range(3))
+    box = torch.empty((n, 4), dtype=torch.int32, device=dev)
+    bits = torch.empty(((h + 7) // 8) * ((w + 7) // 8), dtype=torch.int64,
+                       device=dev)  # the image as 8x8-pixel tiles
+    P = ctypes.c_void_p
+    stream = P(torch.cuda.current_stream(dev).cuda_stream)
+
+    def launch(offsets, pts, clocks):
+        ptr = lambda t: P(None if t is None else t.data_ptr())
+        _kernels.CONTOUR_TRACE(P(binary.data_ptr()), w, h,
+                               P(roots.data_ptr()), n, P(area2.data_ptr()),
+                               P(box.data_ptr()), P(length.data_ptr()),
+                               P(count.data_ptr()), ptr(offsets), ptr(pts),
+                               ptr(clocks), P(bits.data_ptr()), stream)
+
+    launch(None, None, cycles)
+    pts = None
+    if points:
+        bad, total = torch.stack([(length < 0).sum(), count.sum()]).tolist()
+        if bad:
+            raise RuntimeError(f"contour_trace failed on {bad} roots")
+        offsets = torch.cumsum(count, 0) - count
+        pts = torch.empty((total, 2), dtype=torch.int32, device=dev)
+        launch(offsets, pts, None)
+    return Borders(area2, box, length, count, pts)
+
+
+def _fill_holes(binary, bg):
+    """``scipy.ndimage.binary_fill_holes`` of a (h, w) uint8 tensor given
+    ``bg``, the 4-connected roots of its zero pixels (``ccl(binary, 4,
+    fg=False)``): a zero pixel is filled unless its component's root is
+    the root of a zero pixel on an image edge. A bool tensor."""
+    h, w = bg.shape
+    sink = h * w  # stands for -1: the set pixels
+    idx = torch.where(bg >= 0, bg, sink).long()
+    edge = torch.cat([idx[0], idx[-1], idx[:, 0], idx[:, -1]])
+    outside = torch.zeros(sink + 1, dtype=torch.bool, device=bg.device)
+    outside[edge] = True
+    outside[sink] = True
+    return (binary != 0) | ~outside[idx]
+
+
+def external_contours(binary, points=False):
+    """The external contours of a (h, w) uint8 tensor, as
+    ``cv2.findContours(RETR_EXTERNAL, CHAIN_APPROX_SIMPLE)`` sees them:
+    (roots, labels, borders). ``labels`` holds the 8-connected roots of the
+    hole-filled image (``ccl`` of ``_fill_holes``; one component, one
+    external contour), ``roots`` (int64, ascending: the starts in raster
+    order, the reverse of OpenCV's list) its components' first pixels, and
+    ``borders`` the ``Borders`` traced from them on ``binary``. On a CUDA
+    tensor: CCL4, the fill, CCL8 and CONTOUR_TRACE on the card, one host
+    read (the number of roots); on a CPU tensor the plain versions."""
+    bg = ccl(binary, 4, fg=False)
+    filled = _fill_holes(binary, bg).to(torch.uint8)
+    del bg
+    labels = ccl(filled, 8)
+    del filled
+    flat = labels.view(-1)
+    roots = torch.nonzero(flat == torch.arange(flat.numel(), dtype=flat.dtype,
+                                               device=flat.device)).view(-1)
+    return roots, labels, contour_trace(binary, roots, points)
+
+
+def _label_mask(shape, contours, blacken_lower_part, big_area_ratio=0.000013):
+    """``_contour_mask`` from ``external_contours``' tensors, on their
+    device: the big contours are painted as their hole-filled labels (the
+    pixels ``cv2.fillPoly`` sets for an outer border: the border runs
+    through pixel centres and its simple points drop only collinear ones);
+    the biggest is the largest area, on a tie the larger start (OpenCV
+    lists the contours in reverse raster order of their starts). Reads
+    three numbers on the host: the biggest's top row and height, and the
+    count of roots whose trace failed (raises if not 0)."""
+    roots, labels, borders = contours
+    h, w = shape
+    dev = labels.device
+    mask = torch.ones(shape, dtype=torch.bool, device=dev)
+    block = _block_shape(shape)
+    bh = block[0]
+    is_big = borders.area2 > 2 * int(big_area_ratio * h * w)
+    if len(roots):
+        last = len(roots) - 1 - int(torch.argmax(borders.area2.flip(0)))
+        y, height, bad = torch.stack([
+            borders.box[last, 1].long(), borders.box[last, 3].long(),
+            (borders.length < 0).sum()]).tolist()
+        if bad:
+            raise RuntimeError(f"contour_trace failed on {bad} roots")
+        if blacken_lower_part:
+            from_y = (y if (y > shape[0] / 3 and y + height > shape[0] / 2)
+                      else shape[0] // 2)
+            mask[int(math.ceil(from_y / bh) * bh):] = False
+    flag = torch.zeros(h * w + 1, dtype=torch.bool, device=dev)
+    flag[roots[is_big]] = True
+    painted = flag[torch.where(labels >= 0, labels, h * w).long()]
+    _clear_blocks(mask, _blocks_any(painted, block), block)
+    return mask
 
 
 def _contour_mask(shape, contours, areas, offending, blacken_lower_part,
@@ -541,15 +786,10 @@ def hough_lines_p(binary, rho, theta, threshold, min_line_length, max_line_gap,
     ``_hough_p_plain``. ``counters``, a dict if given, gets the
     trajectory's counts (``_hough_p_plain``'s ``HOUGH_COUNTERS``) from
     either."""
-    if binary.dim() != 2 or binary.dtype != torch.uint8:
-        raise ValueError(f"expected an (h, w) uint8 tensor, got "
-                         f"{tuple(binary.shape)} {binary.dtype}")
+    _check_binary(binary, "hough_lines_p")
     if binary.device.type == "cpu":
         return _hough_p_plain(binary.numpy(), rho, theta, threshold,
                               min_line_length, max_line_gap, counters)
-    if binary.device.type != "cuda":
-        raise ValueError(f"hough_lines_p runs on cpu or cuda, not "
-                         f"{binary.device}")
     return _hough_p_cuda(binary, rho, theta, threshold, min_line_length,
                          max_line_gap, counters)
 
@@ -715,9 +955,13 @@ def _dark_area_mask(imgray, blacken_lower_part):
     fudge = 20
     while True:
         binary, _, _, first_spike = _binarize(imgray, fudge, 150)
-        contours, areas, is_big = _big_contours(binary.cpu().numpy())
-        mask = _contour_mask(tuple(imgray.shape), contours, areas, is_big,
-                             blacken_lower_part, imgray.device)
+        if imgray.device.type == "cpu":
+            contours, areas, is_big = _big_contours(binary.numpy())
+            mask = _contour_mask(tuple(imgray.shape), contours, areas, is_big,
+                                 blacken_lower_part, "cpu")
+        else:
+            mask = _label_mask(tuple(imgray.shape), external_contours(binary),
+                               blacken_lower_part)
         if mask.float().mean().item() >= 0.1 or fudge > 100:
             return mask, first_spike
         fudge += 20

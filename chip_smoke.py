@@ -187,7 +187,17 @@ constellation overlays), and checks them:
     ``_hough_order`` at small counts and at each of those inputs' counts;
     both kernels timed (CUDA events) beside their bounds on the star field
     (3 launches each on the path: the main path's rows) and on both frames
-    (rows of their own), and ``hough_lines_p``'s wall time; the path's masks
+    (rows of their own), and ``hough_lines_p``'s wall time; the contour
+    stage's kernels (counted from 0 on the path: one launch each a
+    binarization of each frame): CCL4 and CCL8 (``ops/csrc/ccl.cu``)
+    bit-equal to ``_ccl_plain`` and CONTOUR_TRACE
+    (``ops/csrc/contour_trace.cu``) equal to ``_contour_trace_plain``
+    (doubled areas, boxes, chain lengths, simple counts and points in
+    order) on the stress frames (``contour_stress_frame``), on the star
+    field's binarizations and on both checked-in frames' binarizations
+    (tests/resources/contour_input_*.npz), each kernel timed there (rows
+    of their own: the star field's on the main path), with the walk's
+    ``clock64()`` cycles a step and the stage's wall time; the path's masks
     equal ``mask_starfield`` on the CPU (pixels and sigma); the masking's
     wall time on the card and the CPU and its device time (profiler);
 27. the drawing layer's numbers on the card against the CPU, on the seeded
@@ -212,11 +222,14 @@ fixed-point elevation) sums given the cell indices, and for K3, whose
 function starts from coordinates, the chain of float64 ``bin_indices``,
 the valid samples' data (NaN zeroed) and that ``index_add_`` (the
 ``index_add_`` alone is kept as ``library_ms_given_indices``). The port
-never calls them. The rows of HOUGH_P and HOUGH_ORDER have no library
-call (``library_ms`` null): no PyTorch call computes OpenCV's
-probabilistic Hough transform or draws OpenCV's RNG; their bounds count
-the visit order's (x, y) pairs, the mask and the lines (HOUGH_P), and the
-order's int64 indices (HOUGH_ORDER).
+never calls them. The rows of HOUGH_P, HOUGH_ORDER, CCL8, CCL4 and
+CONTOUR_TRACE have no library call (``library_ms`` null): no PyTorch call
+computes OpenCV's probabilistic Hough transform, draws OpenCV's RNG,
+labels connected components or follows borders; their bounds count the
+visit order's (x, y) pairs, the mask and the lines (HOUGH_P), the order's
+int64 indices (HOUGH_ORDER), the image and the int32 labels (CCL), and
+each chain pixel once with the roots and 40 bytes a root out
+(CONTOUR_TRACE).
 
 Prints one line per phase, then the card's line, a JSON line of
 per-kernel results, and as the last line ``{"ok": true, "device":
@@ -2343,11 +2356,14 @@ def solving_phase(torch, np, card):
                   solve_field=fake, scale_range=(40.0, 60.0))
         torch.cuda.synchronize()
         hp.launches = ho.launches = 0
+        for k in CONTOUR_KERNELS:
+            getattr(_kernels, k).launches = 0
         t0 = time.perf_counter()
         res = spacecraft.solve_sequence(images, wcs_dir, **kw)
         torch.cuda.synchronize()
         seq_ms = (time.perf_counter() - t0) * 1e3
-        hough_launches = {"HOUGH_P": hp.launches, "HOUGH_ORDER": ho.launches}
+        hough_launches = {"HOUGH_P": hp.launches, "HOUGH_ORDER": ho.launches,
+                          **contour_launches()}
         n_first = len(si.solver_calls(tmp.name))
         hpos = np.array(fits.get_spacecraft_position(real_header))
         dists = []
@@ -2367,8 +2383,14 @@ def solving_phase(torch, np, card):
         if n_first != 3 or n_again != 0 or again != res:
             raise AssertionError(f"solve_sequence: {n_first} solver calls, "
                                  f"{n_again} on the resumed run")
-        if (list(hough_launches.values()) != [3, 3] or hp.launches != 3
-                or ho.launches != 3 or len(path_masks) != 3):
+        # one Hough transform a frame, one contour stage (CCL4, CCL8,
+        # CONTOUR_TRACE) a binarization of each frame
+        n_stage = hough_launches["CCL8"]
+        if ([hough_launches["HOUGH_P"], hough_launches["HOUGH_ORDER"]]
+                != [3, 3] or hp.launches != 3 or ho.launches != 3
+                or len(path_masks) != 3 or n_stage < 3 or n_stage % 3
+                or [hough_launches[k] for k in CONTOUR_KERNELS]
+                != [n_stage] * 3):
             raise AssertionError(f"solve_sequence(mask=True): launches "
                                  f"{hough_launches} for 3 frames "
                                  f"({hp.launches}, {ho.launches} after the "
@@ -2616,6 +2638,295 @@ def hough_stress_frame(np, name):
     return img * np.uint8(255)
 
 
+# the binarizations mask_starfield makes of the checked-in frames (ISS030
+# stops at the first), as packed bits in tests/resources/contour_input_*.npz
+CONTOUR_FUDGES = {"ISS030-E-102170_dc": (20,), "ISS029-E-8492": (20, 40, 60)}
+
+
+def contour_input(np, name):
+    """{fudge: the (2832, 4256) 0/255 uint8 binary ``_binarize`` makes of
+    the checked-in frame ``name`` at that fudge}, from
+    tests/resources/contour_input_<name>.npz (packed bits)."""
+    out = {}
+    with np.load(os.path.join(RES, f"contour_input_{name}.npz")) as z:
+        shape = tuple(int(n) for n in z["shape"])
+        for fudge in CONTOUR_FUDGES[name]:
+            bits = np.unpackbits(z[f"fudge{fudge}"], count=shape[0] * shape[1])
+            out[fudge] = bits.reshape(shape) * np.uint8(255)
+    return out
+
+
+CONTOUR_STRESS = ("rings", "pinches", "diagonals", "edges", "singles",
+                  "full", "noise", "spiral")
+
+
+def contour_stress_frame(np, name):
+    """A seeded 240x320 0/255 frame that drives one of the contour stage's
+    hard cases: ``rings``, nested rings (holes, islands in the holes,
+    rings in the islands' holes); ``pinches``, blobs joined through one
+    pixel (side and corner) and holes that touch at a corner; ``diagonals``,
+    45-degree lines, zigzags, diamond rings and checkerboard patches (every
+    hole a single 4-isolated pixel); ``edges``, components and notches on
+    every image edge and in every corner, U shapes open to an edge (no
+    hole), a ring cut by the edge; ``singles``, isolated pixels and pairs,
+    in the corners too; ``full``, one component over the whole frame with
+    holes inside and bays open to the edges; ``noise``, 45% random pixels;
+    ``spiral``, a one-pixel square spiral over the frame (a border of some
+    76,000 steps)."""
+    rng = np.random.default_rng(SEED + 31 + CONTOUR_STRESS.index(name))
+    h, w = 240, 320
+    img = np.zeros((h, w), dtype=np.uint8)
+    yy, xx = np.mgrid[:h, :w]
+    if name == "rings":
+        for _ in range(9):
+            cy, cx = rng.integers(0, h), rng.integers(0, w)
+            r = np.hypot(yy - cy, xx - cx)
+            step = int(rng.integers(2, 7))
+            img[(r < 6 * step) & ((r // step) % 2 == 0)] = 1
+        img[(rng.random((h, w)) < 0.01)] = 1
+    elif name == "pinches":
+        for k in range(40):
+            y, x = rng.integers(4, h - 24), rng.integers(4, w - 44)
+            a, b = int(rng.integers(3, 9)), int(rng.integers(3, 9))
+            img[y:y + a, x:x + a] = 1
+            if k % 2:  # a one-pixel bridge on the side
+                img[y + a // 2, x + a] = 1
+                img[y:y + b, x + a + 1:x + a + 1 + b] = 1
+            else:  # touching at a corner only
+                img[y + a:y + a + b, x + a:x + a + b] = 1
+        for k in range(8):  # two holes meeting at a corner
+            y, x = rng.integers(2, h - 12), rng.integers(2, w - 12)
+            img[y:y + 9, x:x + 9] = 1
+            img[y + 2:y + 4, x + 2:x + 4] = 0
+            img[y + 4:y + 7, x + 4:x + 7] = 0
+    elif name == "diagonals":
+        for k in range(30):
+            y, x, n = rng.integers(0, h), rng.integers(0, w), rng.integers(5, 60)
+            s = 1 if k % 2 else -1
+            i = np.arange(n)
+            ok = (y + i < h) & (x + s * i >= 0) & (x + s * i < w)
+            img[(y + i)[ok], (x + s * i)[ok]] = 1
+        for k in range(12):  # zigzags and diamond rings
+            y, x, r = rng.integers(12, h - 12), rng.integers(12, w - 12), \
+                int(rng.integers(3, 11))
+            d = np.abs(yy - y) + np.abs(xx - x)
+            img[d == r] = 1
+            if k % 3 == 0:
+                img[y, x] = 1  # an island in the diamond's hole
+        for k in range(4):
+            y, x = rng.integers(0, h - 20), rng.integers(0, w - 20)
+            patch = ((yy[:16, :16] + xx[:16, :16]) % 2 == 0)
+            img[y:y + 16, x:x + 16] |= patch.astype(np.uint8)
+    elif name == "edges":
+        img[0, 10:60] = img[h - 1, 40:120] = img[50:90, 0] = 1
+        img[100:180, w - 1] = 1
+        img[:3, :3] = img[:3, w - 3:] = img[h - 3:, :3] = img[h - 3:, w - 3:] = 1
+        img[0:30, 150:190] = 1
+        img[0:20, 160:180] = 0  # a U open to the top edge: no hole
+        img[h - 30:h, 220:260] = 1
+        img[h - 25:h - 5, 230:250] = 0  # a hole near the bottom edge
+        r = np.hypot(yy - 120, xx - (w - 5))
+        img[(r >= 15) & (r < 22)] = 1  # a ring cut by the right edge
+        r = np.hypot(yy - 5, xx - 5)
+        img[(r >= 20) & (r < 24)] = 1
+        img[rng.random((h, w)) < 0.005] = 1
+    elif name == "singles":
+        img[rng.random((h, w)) < 0.004] = 1
+        ys, xs = rng.integers(0, h - 1, 60), rng.integers(0, w - 1, 60)
+        img[ys, xs] = 1
+        img[ys + 1, xs + 1] = 1  # diagonal pairs
+        img[0, 0] = img[0, w - 1] = img[h - 1, 0] = img[h - 1, w - 1] = 1
+    elif name == "full":
+        img[:] = 1
+        for _ in range(25):
+            y, x = rng.integers(1, h - 12), rng.integers(1, w - 12)
+            img[y:y + rng.integers(1, 10), x:x + rng.integers(1, 10)] = 0
+        img[0:15, 100:104] = 0  # bays open to the edges
+        img[h - 8:h, 30:50] = 0
+        img[60:63, w - 20:w] = 0
+        for y, x in rng.integers(3, 9, (6, 2)) + [40, 40]:
+            img[y, x] = 1
+    elif name == "noise":
+        img[rng.random((h, w)) < 0.45] = 1
+    elif name == "spiral":  # a turtle: right w-1, down h-1, left w-1,
+        # then up and right, down and left, two shorter each turn
+        lens = [w - 1, h - 1, w - 1]
+        a, b = h - 3, w - 3
+        while a > 0 and b > 0:
+            lens += [a, b]
+            a, b = a - 2, b - 2
+        y = x = 0
+        img[0, 0] = 1
+        for k, n in enumerate(lens):
+            dy, dx = ((0, 1), (1, 0), (0, -1), (-1, 0))[k % 4]
+            img[y + dy * np.arange(1, n + 1), x + dx * np.arange(1, n + 1)] = 1
+            y, x = y + dy * n, x + dx * n
+    else:
+        raise ValueError(f"no stress frame {name!r}")
+    return img * np.uint8(255)
+
+
+CONTOUR_KERNELS = ("CCL8", "CCL4", "CONTOUR_TRACE")
+
+
+def contour_launches():
+    from auromat_tpu_torch.ops import _kernels
+
+    return {k: getattr(_kernels, k).launches for k in CONTOUR_KERNELS}
+
+
+def contour_held(torch, np, what, binary):
+    """The contour stage on the card against its plain versions on one
+    (h, w) 0/255 binary: CCL4 of the zero pixels and CCL8 of the
+    hole-filled image bit-equal to ``_ccl_plain``, CONTOUR_TRACE (with
+    its points) equal to ``_contour_trace_plain`` (doubled areas, boxes,
+    chain lengths, simple counts, points in order). Returns the card's
+    tensors and the plain versions' host ms."""
+    from auromat_tpu_torch.solving import masking
+
+    dev = torch.device("cuda")
+    plain_ms = {}
+    t0 = time.perf_counter()
+    bg_want = masking._ccl_plain(binary, 4, fg=False)
+    plain_ms["CCL4"] = (time.perf_counter() - t0) * 1e3
+    filled_want = masking._fill_holes(torch.from_numpy(binary),
+                                      torch.from_numpy(bg_want)).numpy()
+    t0 = time.perf_counter()
+    labels_want = masking._ccl_plain(filled_want, 8)
+    plain_ms["CCL8"] = (time.perf_counter() - t0) * 1e3
+    roots_want = np.flatnonzero(labels_want.ravel() ==
+                                np.arange(binary.size))
+    t0 = time.perf_counter()
+    trace_want = masking._contour_trace_plain(binary, roots_want, points=True)
+    plain_ms["CONTOUR_TRACE"] = (time.perf_counter() - t0) * 1e3
+
+    g = torch.from_numpy(binary).to(dev)
+    bg = masking.ccl(g, 4, fg=False)
+    filled = masking._fill_holes(g, bg).to(torch.uint8)
+    labels = masking.ccl(filled, 8)
+    roots, labels_path, borders = masking.external_contours(g, points=True)
+    torch.cuda.synchronize()
+    checks = {"CCL4": np.array_equal(bg.cpu().numpy(), bg_want),
+              "fill": np.array_equal(filled.cpu().numpy() != 0, filled_want),
+              "CCL8": np.array_equal(labels.cpu().numpy(), labels_want)
+              and torch.equal(labels, labels_path),
+              "roots": np.array_equal(roots.cpu().numpy(), roots_want)}
+    for field in masking.Borders._fields:
+        checks[field] = np.array_equal(getattr(borders, field).cpu().numpy(),
+                                       getattr(trace_want, field))
+    if not all(checks.values()):
+        raise AssertionError(f"the contour stage on {what} != the plain "
+                             f"versions: {checks}")
+    return g, filled, roots, borders, plain_ms
+
+
+def contour_rows(torch, np, card, what, binary, launches):
+    """CCL8, CCL4 and CONTOUR_TRACE on one binarization: held against the
+    plain versions (``contour_held``) and timed (CUDA events, median of 5);
+    the walk's ``clock64()`` cycles a step on the longest border; the
+    stage's wall ms (``external_contours`` and ``_label_mask``, median of
+    5). Returns their three kernel rows and the stage's wall ms."""
+    from auromat_tpu_torch.solving import masking
+
+    g, filled, roots, borders, plain_ms = contour_held(torch, np, what,
+                                                       binary)
+    dev = g.device
+    before = contour_launches()
+    masking.external_contours(g)
+    calls = {k: n - before[k] for k, n in contour_launches().items()}
+    if list(calls.values()) != [1, 1, 1]:
+        raise AssertionError(f"external_contours on {what}: launches {calls}")
+    ms = {"CCL4": cuda_ms(torch, lambda: masking.ccl(g, 4, fg=False), 5),
+          "CCL8": cuda_ms(torch, lambda: masking.ccl(filled, 8), 5),
+          "CONTOUR_TRACE": cuda_ms(
+              torch, lambda: masking._contour_trace_cuda(g, roots), 5)}
+    cycles = torch.zeros(len(roots), dtype=torch.int64, device=dev)
+    masking._contour_trace_cuda(g, roots, cycles=cycles)
+    longest = int(torch.argmax(borders.length))
+    steps = int(borders.length[longest])
+    per_step = int(cycles[longest]) / max(steps, 1)
+    stage_ms = wall_ms(torch, lambda: masking._label_mask(
+        binary.shape, masking.external_contours(g), True), 5)
+    n, h, w = len(roots), *binary.shape
+    # bytes the functions must move: CCL reads the image (a byte a pixel)
+    # and writes the int32 labels; CONTOUR_TRACE reads each chain pixel
+    # once, the int32 roots, and writes 40 bytes a root (doubled area,
+    # box, length, count)
+    nbytes = {"CCL4": 5 * h * w, "CCL8": 5 * h * w,
+              "CONTOUR_TRACE": int(borders.length.sum()) + 44 * n}
+    n_big = int((borders.area2 > 2 * int(0.000013 * h * w)).sum())
+    print(f"[26] contour stage on {what}: {n} external contours ({n_big} "
+          f"big), the longest {steps} steps; CCL4, fill, CCL8 and "
+          f"CONTOUR_TRACE == the plain versions (labels, roots, areas, "
+          f"boxes, lengths, counts, {int(borders.count.sum())} points); "
+          f"CUDA ms (median of 5) CCL4 {ms['CCL4']:.3f}, CCL8 "
+          f"{ms['CCL8']:.3f}, CONTOUR_TRACE {ms['CONTOUR_TRACE']:.3f} "
+          f"({per_step:.1f} cycles a step of the longest walk, clock64); "
+          f"stage wall {stage_ms:.2f} ms; plain (host) ms "
+          + ", ".join(f"{k} {v:.1f}" for k, v in plain_ms.items())
+          + f"; bounds ms " + ", ".join(f"{k} {bound_ms(v):.5f}"
+                                       for k, v in nbytes.items())
+          + f"; launches {launches or calls}; on {card}", flush=True)
+    names = {"CCL8": "ccl (CCL8), the hole-filled image's 8-connected "
+                     "components",
+             "CCL4": "ccl (CCL4), the zero pixels' 4-connected components "
+                     "(the holes)",
+             "CONTOUR_TRACE": f"contour_trace (CONTOUR_TRACE), {n} outer "
+                              f"borders, the longest {steps} steps"}
+    sources = {"CCL8": "ccl.cu", "CCL4": "ccl.cu",
+               "CONTOUR_TRACE": "contour_trace.cu"}
+    rows = [{"name": f"{names[k]}, on {what} (no TPU kernel: the JAX "
+                     f"package calls cv2.findContours on the host; no "
+                     f"PyTorch call labels components or follows borders)",
+             "route": "cuda",
+             "source": f"auromat_tpu_torch/ops/csrc/{sources[k]}",
+             "replaces": "auromat_tpu/solving/masking.py:70",
+             "launches": (launches or calls)[k], "max_abs_err": 0.0,
+             "ms": ms[k], "plain_ms": plain_ms[k],
+             "bound_ms": bound_ms(nbytes[k]), "bound_by": "bytes",
+             "library_ms": None} for k in CONTOUR_KERNELS]
+    return rows, stage_ms
+
+
+def contour_phase(torch, np, card, gray, launches):
+    """The contour stage's kernels against their plain versions on the
+    stress frames (``contour_stress_frame``), on the binarizations
+    ``mask_starfield`` makes of the star field (``gray``) and on the
+    checked-in frames' binarizations; kernel rows for the star field's
+    (the path's: ``launches`` from its run) and each frame's."""
+    from auromat_tpu_torch.solving import masking
+
+    stress = {}
+    for name in CONTOUR_STRESS:
+        _, _, roots, borders, _ = contour_held(
+            torch, np, f"the stress frame {name!r}",
+            contour_stress_frame(np, name))
+        stress[name] = (len(roots), int(borders.length.max()))
+    print(f"[26] CCL4, CCL8, CONTOUR_TRACE == the plain versions on the "
+          f"stress frames (contours, longest border): {stress}", flush=True)
+    with recorded((masking, "external_contours")) as rec:
+        masking._dark_area_mask(gray, True)
+    sky_bins = [a[0].cpu().numpy() for a in rec.calls["external_contours"]]
+    if not sky_bins:
+        raise AssertionError("_dark_area_mask on the card ran no contour stage")
+    rows, stage = [], {}
+    for k, binary in enumerate(sky_bins):
+        what = f"the star-field frame's binarization {k + 1} (the path's)"
+        r, stage[f"star field {k + 1}"] = contour_rows(torch, np, card, what,
+                                                       binary, launches)
+        rows += r
+    for name in HOUGH_FRAMES:
+        for fudge, binary in contour_input(np, name).items():
+            r, stage[f"{name} fudge {fudge}"] = contour_rows(
+                torch, np, card, f"{name}'s binarization at fudge {fudge}",
+                binary, None)
+            rows += r
+    print(f"[26] the contour stage's wall ms a binarization: "
+          + ", ".join(f"{k} {v:.2f}" for k, v in stage.items())
+          + f"; on {card}", flush=True)
+    return rows
+
+
 def masking_phase(torch, np, card, sky, path_masks, launches):
     """Phase 26, the masking: HOUGH_P against ``_hough_p_plain`` (lines and
     the four counts) on small seeded frames, the stress frames, the
@@ -2750,6 +3061,7 @@ def masking_phase(torch, np, card, sky, path_masks, launches):
     for name in HOUGH_FRAMES:
         rows += kernel_rows(f"{name}'s Hough input", hough_input(np, name),
                             None)
+    rows += contour_phase(torch, np, card, gray, launches)
 
     # the masks the path made, against mask_starfield on the CPU
     t0 = time.perf_counter()
@@ -2946,7 +3258,8 @@ def main():
 
     # -- 2. build every kernel source at once; wait for K1's ---------------
     builds = start_builds([_kernels.GEOREGRID_BIN, _kernels.REGRID_BIN,
-                           _kernels.HOUGH_P, _kernels.HOUGH_ORDER])
+                           _kernels.HOUGH_P, _kernels.HOUGH_ORDER,
+                           _kernels.CCL8, _kernels.CONTOUR_TRACE])
     kernels = {"K1": _kernels.GEOREGRID_BIN}
     for name, k in kernels.items():
         secs = builds[k.source].result()

@@ -72,7 +72,17 @@ only the port is installed:
   to 910,556; ``hough_lines_p`` on a CUDA tensor with ``_hough_order``
   made to raise (the order is drawn on the card); ``mask_starfield`` of
   chip_smoke.py's seeded 4256x2832 star-field frame on the card equal to
-  the CPU's (pixels and sigma), each kernel launched once.
+  the CPU's (pixels and sigma), each Hough kernel launched once and the
+  contour kernels once a binarization.
+* The contour stage on the card: CCL8 and CCL4 (``ops/csrc/ccl.cu``) of
+  the set and the unset pixels bit-equal to ``_ccl_plain``, and
+  ``external_contours`` (CCL4, the hole fill, CCL8, CONTOUR_TRACE from
+  ``ops/csrc/contour_trace.cu``) equal to its plain route (roots, labels,
+  doubled areas, boxes, chain lengths, simple counts and points in order)
+  on chip_smoke.py's contour stress frames and the checked-in frames'
+  binarizations (tests/resources/contour_input_*.npz);
+  ``mask_starfield`` on a CUDA tensor with scipy's labelling, the host
+  border follower and the host polygon raster made to raise.
 * The drawing layer's numeric helpers on the card against the CPU, on a
   512x384 mapping of the scaled calibration: the KML overlay (its
   ``resample('mean')`` launches K1; KML text and RGBA equal), the horizon
@@ -1180,8 +1190,92 @@ def test_mask_starfield_gpu_matches_cpu(cuda):
 
     frame = _chip_smoke().starfield_frame(np)
     before = _hough_launches()
+    contours_before = _contour_launches()
     mask, sigma = masking.mask_starfield(frame, device=cuda)
     assert _hough_launches() == [n + 1 for n in before]
+    # one contour stage a binarization: CCL4, CCL8, CONTOUR_TRACE once each
+    n = [a - b for a, b in zip(_contour_launches(), contours_before)]
+    assert n[0] >= 1 and n == [n[0]] * 3
     cmask, csigma = masking.mask_starfield(frame, device="cpu")
     assert np.array_equal(mask, cmask) and sigma == csigma
     assert 0.2 < mask.mean() < 0.8
+
+
+def _contour_launches():
+    return [_kernels.CCL8.launches, _kernels.CCL4.launches,
+            _kernels.CONTOUR_TRACE.launches]
+
+
+def _contour_frames():
+    """(name, binary) of the contour stage's checks: the stress frames and
+    the checked-in frames' binarizations."""
+    cs = _chip_smoke()
+    out = [(n, cs.contour_stress_frame(np, n)) for n in cs.CONTOUR_STRESS]
+    for name in sorted(cs.CONTOUR_FUDGES):
+        out += [(f"{name} fudge {f}", img)
+                for f, img in cs.contour_input(np, name).items()]
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("connectivity", [8, 4])
+def test_ccl_gpu_matches_plain(cuda, connectivity):
+    from auromat_tpu_torch.solving import masking
+
+    kernel = _kernels.CCL8 if connectivity == 8 else _kernels.CCL4
+    for what, img in _contour_frames():
+        for fg in (True, False):
+            before = kernel.launches
+            got = masking.ccl(torch.from_numpy(img).to(cuda), connectivity, fg)
+            assert kernel.launches == before + 1
+            assert got.device.type == "cuda" and got.dtype == torch.int32
+            want = masking._ccl_plain(img, connectivity, fg)
+            assert np.array_equal(got.cpu().numpy(), want), (what, fg)
+
+
+@pytest.mark.gpu
+def test_contour_trace_gpu_matches_plain(cuda):
+    # external_contours on the card (CCL4, the fill, CCL8, CONTOUR_TRACE
+    # twice: the counts, then the points) against the plain route: roots,
+    # labels, doubled areas, boxes, lengths, counts and points, in order
+    from auromat_tpu_torch.solving import masking
+
+    for what, img in _contour_frames():
+        before = _contour_launches()
+        roots, labels, b = masking.external_contours(
+            torch.from_numpy(img).to(cuda), points=True)
+        assert _contour_launches() == [before[0] + 1, before[1] + 1,
+                                       before[2] + 2]
+        want = masking.external_contours(torch.from_numpy(img), points=True)
+        assert torch.equal(roots.cpu(), want[0]), what
+        assert torch.equal(labels.cpu(), want[1]), what
+        for field in masking.Borders._fields:
+            assert torch.equal(getattr(b, field).cpu(),
+                               getattr(want[2], field)), (what, field)
+
+
+@pytest.mark.gpu
+def test_mask_starfield_gpu_traces_no_contour_on_the_host(cuda, monkeypatch):
+    # the contour stage of mask_starfield on a CUDA tensor: no scipy label,
+    # no host border follower, no host polygon raster
+    from scipy import ndimage
+
+    from auromat_tpu_torch import utils
+    from auromat_tpu_torch.solving import masking
+
+    frame = _chip_smoke().starfield_frame(np)
+    want = masking.mask_starfield(frame, device="cpu")
+
+    def refuse(*a, **k):
+        raise AssertionError("the card's route ran a host contour step")
+
+    for mod, name in ((ndimage, "label"), (ndimage, "binary_fill_holes"),
+                      (ndimage, "find_objects"), (utils, "trace_outer_borders"),
+                      (masking, "trace_outer_borders"),
+                      (utils, "poly_fill_spans"), (masking, "poly_fill_spans"),
+                      (masking, "_big_contours"), (masking, "_fill_polys")):
+        monkeypatch.setattr(mod, name, refuse)
+    before = _contour_launches()
+    mask, sigma = masking.mask_starfield(frame, device=cuda)
+    assert all(n > b for n, b in zip(_contour_launches(), before))
+    assert np.array_equal(mask, want[0]) and sigma == want[1]

@@ -18,9 +18,15 @@ the port's on the CPU.
 Hough input (lines equal, and the four trajectory counts: voters,
 triggers, clearing steps, lines), the kernel's time (CUDA events, median
 of 5, a fresh mask and accumulator each run), HOUGH_ORDER's time (the
-visit order on the card, median of 5) and the wrapper's wall time, and
-``mask_starfield(device='cuda')`` against the executed reference's
-golden_masking_*.npz (pixels apart, sigma), its wall time (median of 3).
+visit order on the card, median of 5) and the wrapper's wall time; for
+each binarization of the frame (tests/resources/contour_input_*.npz) the
+contour stage on the card: CCL4, CCL8 and CONTOUR_TRACE (CUDA events,
+median of 5) and the stage's wall time (``external_contours`` and
+``_label_mask``, median of 3); and ``mask_starfield(device='cuda')``
+against the executed reference's golden_masking_*.npz (pixels apart,
+sigma), its wall time (median of 3) beside the 1050.9 / 7385.5 ms the
+same call took with the contours on the host (NVIDIA H100 80GB HBM3,
+700 W).
 """
 
 import math
@@ -37,6 +43,9 @@ sys.path.insert(0, ROOT)
 RES = os.path.join(ROOT, "tests", "resources")
 FRAMES = ("ISS030-E-102170_dc", "ISS029-E-8492")
 HOUGH = (1, math.pi / 180, 200, 100, 4)
+# mask_starfield's wall ms on the card when its contours ran on the host
+# (NVIDIA H100 80GB HBM3, 700 W)
+HOST_CONTOURS_MS = {"ISS030-E-102170_dc": 1050.9, "ISS029-E-8492": 7385.5}
 
 
 def median_s(fn, reps=3):
@@ -46,6 +55,22 @@ def median_s(fn, reps=3):
         out = fn()
         times.append(time.perf_counter() - t0)
     return statistics.median(times), out
+
+
+def events_ms(fn, reps=5):
+    """Median CUDA-event ms of ``fn()`` over ``reps`` runs."""
+    import torch
+
+    runs = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        runs.append(start.elapsed_time(end))
+    return statistics.median(runs)
 
 
 def prepare(folder):
@@ -91,8 +116,33 @@ def card(folder):
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip(), flush=True)
-    _kernels.HOUGH_P.build()
-    _kernels.HOUGH_ORDER.build()
+    import chip_smoke
+
+    for k in (_kernels.HOUGH_P, _kernels.HOUGH_ORDER, _kernels.CCL8,
+              _kernels.CCL4, _kernels.CONTOUR_TRACE):
+        k.build()
+
+    for name in FRAMES:
+        for fudge, binary in chip_smoke.contour_input(np, name).items():
+            g = torch.from_numpy(binary).to(dev)
+            roots, _, borders = masking.external_contours(g)
+            filled = masking._fill_holes(g, masking.ccl(g, 4, fg=False)).to(
+                torch.uint8)
+            ccl4 = events_ms(lambda: masking.ccl(g, 4, fg=False))
+            ccl8 = events_ms(lambda: masking.ccl(filled, 8))
+            trace = events_ms(lambda: masking._contour_trace_cuda(g, roots))
+
+            def stage():
+                masking._label_mask(binary.shape, masking.external_contours(g),
+                                    True)
+                torch.cuda.synchronize()
+
+            stage_s, _ = median_s(stage)
+            print(f"{name} fudge {fudge}: {len(roots)} external contours, "
+                  f"the longest {int(borders.length.max())} steps; card ms "
+                  f"CCL4 {ccl4:.3f}, CCL8 {ccl8:.3f}, CONTOUR_TRACE "
+                  f"{trace:.3f}; contour stage wall {stage_s * 1e3:.2f} ms",
+                  flush=True)
     for name in FRAMES:
         hin = np.load(os.path.join(folder, f"{name}_hough.npz"))["b"]
         want_counts, counts = {}, {}
@@ -112,15 +162,8 @@ def card(folder):
             end.record()
             end.synchronize()
             runs.append(start.elapsed_time(end))
-        order_runs = []
-        for _ in range(5):
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            masking._hough_order_cuda(a["count"], dev)
-            end.record()
-            end.synchronize()
-            order_runs.append(start.elapsed_time(end))
+        order_ms = events_ms(lambda: masking._hough_order_cuda(a["count"],
+                                                               dev))
 
         def wrapper():
             out = masking.hough_lines_p(b, *HOUGH)
@@ -143,11 +186,12 @@ def card(folder):
               f"({len(got)} lines, {a['count']} candidate pixels, counts "
               f"{counts}); kernel {statistics.median(runs):.1f} ms (runs "
               f"{[round(r, 1) for r in runs]}), HOUGH_ORDER "
-              f"{statistics.median(order_runs):.3f} ms, wrapper wall "
+              f"{order_ms:.3f} ms, wrapper wall "
               f"{wrap_s * 1e3:.1f} ms; mask_starfield on the card: "
               f"{int((m != golden['mask']).sum())} pixels from the golden, "
               f"sigma {sigma} (golden {float(golden['sigma'])}), wall "
-              f"{wall_s * 1e3:.1f} ms", flush=True)
+              f"{wall_s * 1e3:.1f} ms (with the contours on the host: "
+              f"{HOST_CONTOURS_MS[name]} ms)", flush=True)
 
 
 if __name__ == "__main__":
