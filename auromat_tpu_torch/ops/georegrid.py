@@ -41,6 +41,7 @@ import torch
 from auromat_tpu_torch.ops._kernels import GEOREGRID_BIN, GEOREGRID_BIN_I8
 from auromat_tpu_torch.ops.georef import DynGeorefParams, georef_latlon_dyn
 from auromat_tpu_torch.ops.regrid import GridSpec, bin_indices, finalize_mean
+from auromat_tpu_torch.profiling import span
 
 ELEV_OFFSET = 90.0  # elevation + 90 >= 0: the fixed-point sums are unsigned
 ELEV_SCALE = 2.0 ** 30  # fixed-point scale of the elevation sums
@@ -175,7 +176,9 @@ def _bin_rgbelev_cuda(grid, iy, ix, img_chw, elev, compute, finish):
         sums = torch.empty(n_cells, 4, dtype=torch.float32, device=dev)
     launch_k1(grid, iy, ix, img_chw, elev, acc, elev_acc, status, count,
               sums, compute)
-    refuse_cell_count(int(status.item()))
+    with span("k1.wait"):
+        most = int(status.item())
+    refuse_cell_count(most)
     if finish:
         return (count.reshape(grid.n_lat, grid.n_lon),
                 sums.reshape(grid.n_lat, grid.n_lon, 4))
@@ -254,13 +257,15 @@ def bin_mean_rgbelev(grid: GridSpec, lats, lons, data):
     :param data: (h, w, 4) — integer-valued 0..255 RGB + elevation (deg)
     :returns: (count (n_lat, n_lon), means (n_lat, n_lon, 4))
     """
-    flat, valid = bin_indices(grid, lats, lons)
-    iy, ix = split_bin_indices(grid, flat, valid)
-    data = data.to(torch.float32)
-    img_chw = data[..., :3].permute(2, 0, 1).contiguous()
-    count, sums = bin_rgbelev_from_indices(grid, iy, ix, img_chw,
-                                           data[..., 3].contiguous())
-    return count, finalize_mean(count, sums)
+    with span("georegrid"):
+        with span("georegrid.bin_indices", stream=lats.device):
+            flat, valid = bin_indices(grid, lats, lons)
+            iy, ix = split_bin_indices(grid, flat, valid)
+        data = data.to(torch.float32)
+        img_chw = data[..., :3].permute(2, 0, 1).contiguous()
+        count, sums = bin_rgbelev_from_indices(grid, iy, ix, img_chw,
+                                               data[..., 3].contiguous())
+        return count, finalize_mean(count, sums)
 
 
 def georegrid_inputs(grid: GridSpec, dyn: DynGeorefParams, h, w, mask=None,
@@ -275,13 +280,16 @@ def georegrid_inputs(grid: GridSpec, dyn: DynGeorefParams, h, w, mask=None,
     """
     dev = dyn.cd.device
     f32 = torch.float32
-    px = torch.arange(w, dtype=f32, device=dev)[None, :].expand(h, w)
-    py = torch.arange(row0, row0 + h, dtype=f32, device=dev)[:, None].expand(h, w)
-    out = georef_latlon_dyn(dyn, px, py, dtype=f32, with_elevation=True)
-    flat, valid = bin_indices(grid, out["lat"], out["lon"])
-    if mask is not None:
-        valid &= ~mask
-    iy, ix = split_bin_indices(grid, flat, valid)
+    with span("georegrid.georef", stream=dev):
+        px = torch.arange(w, dtype=f32, device=dev)[None, :].expand(h, w)
+        py = torch.arange(row0, row0 + h, dtype=f32,
+                          device=dev)[:, None].expand(h, w)
+        out = georef_latlon_dyn(dyn, px, py, dtype=f32, with_elevation=True)
+    with span("georegrid.bin_indices", stream=dev):
+        flat, valid = bin_indices(grid, out["lat"], out["lon"])
+        if mask is not None:
+            valid &= ~mask
+        iy, ix = split_bin_indices(grid, flat, valid)
     return iy, ix, out
 
 
@@ -298,6 +306,11 @@ def georegrid_partial(grid: GridSpec, dyn: DynGeorefParams, img_chw,
     :returns: count (n_lat, n_lon) and sums (n_lat, n_lon, 4) over
         channels (R, G, B, elevation)
     """
+    with span("georegrid"):
+        return _georegrid_sums(grid, dyn, img_chw, mask)
+
+
+def _georegrid_sums(grid, dyn, img_chw, mask):
     _, h, w = img_chw.shape
     iy, ix, out = georegrid_inputs(grid, dyn, h, w, mask)
     return bin_rgbelev_from_indices(grid, iy, ix,
@@ -307,5 +320,6 @@ def georegrid_partial(grid: GridSpec, dyn: DynGeorefParams, img_chw,
 
 def georegrid_mean(grid: GridSpec, dyn: DynGeorefParams, img_chw, mask=None):
     """Fused georef + mean regrid: (count, means); NaN where empty."""
-    count, sums = georegrid_partial(grid, dyn, img_chw, mask)
-    return count, finalize_mean(count, sums)
+    with span("georegrid"):
+        count, sums = _georegrid_sums(grid, dyn, img_chw, mask)
+        return count, finalize_mean(count, sums)

@@ -23,6 +23,7 @@ from auromat_tpu_torch.ops.georef import DynGeorefParams, GeorefParams
 from auromat_tpu_torch.ops.regrid import GridSpec, finalize_mean
 from auromat_tpu_torch.parallel.sharding import (Mesh,
                                                  make_grid_sharded_mosaic_step)
+from auromat_tpu_torch.profiling import span
 
 _EYE3 = ((1.0, 0.0, 0.0), (0.0, 1.0, 0.0), (0.0, 0.0, 1.0))
 
@@ -98,14 +99,16 @@ def mosaic_sequence(mesh: Mesh, grid: GridSpec, bursts, batch=8,
         total = part if total is None else tuple(
             a.add_(b) for a, b in zip(total, part))
 
-    for params_list, imgs in bursts:
-        params_list = list(params_list)
-        if not isinstance(imgs, torch.Tensor):
-            imgs = np.asarray(imgs)
-        for i in range(0, len(params_list), batch):
-            run_chunk(params_list[i:i + batch], imgs[i:i + batch])
+    with span("mosaic"):
+        for params_list, imgs in bursts:
+            params_list = list(params_list)
+            if not isinstance(imgs, torch.Tensor):
+                imgs = np.asarray(imgs)
+            for i in range(0, len(params_list), batch):
+                run_chunk(params_list[i:i + batch], imgs[i:i + batch])
 
-    if total is None:
-        raise ValueError("empty sequence: no frames to mosaic")
-    count, sums = step.finish(total)
-    return count, finalize_mean(count, sums)
+        if total is None:
+            raise ValueError("empty sequence: no frames to mosaic")
+        with span("mosaic.finish", stream=mesh.device):
+            count, sums = step.finish(total)
+            return count, finalize_mean(count, sums)

@@ -35,6 +35,7 @@ from auromat_tpu_torch.ops.georegrid import (bin_rgbelev_int, finish_int_sums,
                                              georegrid_inputs)
 from auromat_tpu_torch.ops.regrid import (_BIN_METHODS, GridSpec, bin_indices,
                                           bin_partial, finalize_mean, round_up)
+from auromat_tpu_torch.profiling import span
 
 # K1's integer binning, by bin_method: the kernel on CUDA tensors (its
 # plain version on CPU tensors), or its plain version on any device
@@ -354,7 +355,8 @@ class GridShardedStep:
         band_grid = dataclasses.replace(self.grid, n_lat=self.band)
         if self.bin_method in _K1_BINNERS:
             cnt_rgb, elev_fixed = partial
-            most = int(cnt_rgb[:, 0].max().item())
+            with span("mosaic.finish.wait"):
+                most = int(cnt_rgb[:, 0].max().item())
             if most > _ELEV_INT64_MAX_COUNT:
                 raise ValueError(f"a cell holds {most} samples: its int64 "
                                  "elevation sum could overflow")

@@ -54,6 +54,7 @@ from auromat_tpu_torch.ops.regrid import (bin_mean, bin_nearest,
                                           bin_take_best, fixed_grid,
                                           interp_cubic_structured,
                                           interp_linear_structured)
+from auromat_tpu_torch.profiling import span
 from auromat_tpu_torch.utils import points_inside_polygon
 from auromat_tpu_torch.utils import wrap_lon_180 as _wrap_lon_np
 
@@ -126,57 +127,9 @@ def resample(mapping_or_collection, px_per_deg=25, arcsec_per_px=None,
     if method not in ("mean", "nearest_host") + _INTERP_METHODS:
         raise NotImplementedError(method)
     device = compute_device(device)
-
-    if contains_pole is None:
-        contains_pole = mapping.containsPole
-    if arcsec_per_px:
-        px_per_deg = plate_carree_resolution(mapping.boundingBox, arcsec_per_px)
-    else:
-        try:
-            _, _ = px_per_deg
-        except TypeError:
-            px_per_deg = (px_per_deg, px_per_deg)
-
-    img = mapping.img
-    img_dtype = img.dtype
-    if method == "nearest" and device.type == "cuda":
-        method = "nearest_device"
-    elif method == "nearest_host":
-        method = "nearest"
-    if bin_method == "auto" and method == "mean":
-        n_ch = img.shape[2] if img.ndim == 3 else 1
-        on_gpu = device.type == "cuda"
-        if on_gpu and img_dtype == np.uint8 and n_ch == 3 and \
-                mapping.elevation is not None:
-            # K1; its NaN-data-adds-0 contract equals taint semantics here:
-            # mask invariants put NaN data only at NaN coordinates
-            bin_method = "pallas_rgbelev"
-        elif on_gpu and img_dtype == np.uint8:
-            bin_method = "pallas_taint"
-        else:
-            bin_method = "sorted"
-    elif bin_method == "auto":
-        bin_method = "sorted"
-    img3 = img if img.ndim == 3 else img[:, :, None]
-    parts = [np.asarray(img3.astype(np.float64).filled(np.nan))]
-    has_elevation = mapping.elevation is not None
-    if has_elevation:  # CDF/netCDF files without zenith_angle have none
-        parts.append(np.asarray(mapping.elevation.filled(np.nan))[:, :, None])
-    merged = np.concatenate(parts, axis=-1)
-    lats, lons, lats_c, lons_c, data = _resample(
-        np.asarray(mapping.latsCenter.filled(np.nan)),
-        np.asarray(mapping.lonsCenter.filled(np.nan)),
-        mapping.altitude, merged, lambda: mapping.outline.copy(),
-        mapping.boundingBox, px_per_deg, mapping.containsDiscontinuity,
-        contains_pole, method, bin_method, device,
-    )
-    img_r = data[..., :-1] if has_elevation else data
-    elevation_r = data[..., -1] if has_elevation else None
-    if np.issubdtype(img_dtype, np.integer):
-        img_r = _finalize_int_image(img_r, img_dtype)
-    if img3.shape[2] == 1:
-        img_r = img_r[..., 0]
-    return mapping.createResampled(lats, lons, lats_c, lons_c, elevation_r, img_r)
+    with span("resample"):
+        return _resample_mapping(mapping, px_per_deg, arcsec_per_px,
+                                 contains_pole, method, bin_method, device)
 
 
 def resample_mlat_mlt(mapping, device="cuda", **kw):
@@ -235,22 +188,33 @@ def grid_mapping(grid, img_r, elev_r, altitude, photo_time, identifier,
 def _bin_mean_on(device, grid, lats_center, lons_center, data, bin_method):
     """Mean-bin host arrays on ``device``; host float64 means back."""
     lats, lons, data = _to_device(device, lats_center, lons_center, data)
-    if bin_method == "pallas_rgbelev":
-        from auromat_tpu_torch.ops.georegrid import bin_mean_rgbelev
+    with span("resample.bin"):
+        if bin_method == "pallas_rgbelev":
+            from auromat_tpu_torch.ops.georegrid import bin_mean_rgbelev
 
-        _, data_r = bin_mean_rgbelev(grid, lats, lons, data)
-    elif bin_method == "pallas_taint":
-        from auromat_tpu_torch.ops.regrid_pallas import bin_mean_pallas_taint
+            _, data_r = bin_mean_rgbelev(grid, lats, lons, data)
+        elif bin_method == "pallas_taint":
+            from auromat_tpu_torch.ops.regrid_pallas import \
+                bin_mean_pallas_taint
 
-        _, data_r = bin_mean_pallas_taint(grid, lats, lons, data)
-    else:
-        _, data_r = bin_mean(grid, lats, lons, data, method=bin_method)
-    return data_r.to(device="cpu", dtype=torch.float64).numpy()
+            _, data_r = bin_mean_pallas_taint(grid, lats, lons, data)
+        else:
+            _, data_r = bin_mean(grid, lats, lons, data, method=bin_method)
+    return _to_host(data_r)
 
 
 def _to_device(device, *arrays):
-    return [torch.from_numpy(np.ascontiguousarray(a)).to(device)
-            for a in arrays]
+    nbytes = 0 if device.type == "cpu" else sum(a.nbytes for a in arrays)
+    with span("resample.to_device", nbytes=nbytes):
+        return [torch.from_numpy(np.ascontiguousarray(a)).to(device)
+                for a in arrays]
+
+
+def _to_host(data_r):
+    """A device grid as host float64."""
+    nbytes = 0 if data_r.device.type == "cpu" else data_r.nbytes
+    with span("resample.to_host", nbytes=nbytes):
+        return data_r.to(device="cpu", dtype=torch.float64).numpy()
 
 
 def _interpolate(method, device, grid, lats_center, lons_center, data):
@@ -273,51 +237,39 @@ def _interpolate(method, device, grid, lats_center, lons_center, data):
         return scipy.interpolate.griddata(
             pts, vals, (grid.lat_centers[:, None], grid.lon_centers[None, :]),
             method=method)
-    return data_r.to(device="cpu", dtype=torch.float64).numpy()
+    return _to_host(data_r)
 
 
-def _resample(lats_center, lons_center, altitude, data, outline_fn, bbox,
-              px_per_deg, contains_discontinuity, contains_pole, method,
-              bin_method, device):
+def _target_grid(outline_fn, bbox, px_per_deg, contains_pole, shift,
+                 altitude):
+    """The regular grid a mapping resamples onto, in its working frame:
+    rotated 90 deg about the x-axis when the mapping holds a pole, its
+    longitudes shifted by 180 deg when it crosses the antimeridian.
+
+    :param outline_fn: returns a copy of the mapping's outline
+    :returns: the grid, a function returning the outline in the working
+        frame, the grid's corner (lat, lon) in that frame, and the output
+        corner and centre grids (lat, lon, lat_c, lon_c) in true coordinates
+    """
     lat_min, lat_max = bbox.latSouth, bbox.latNorth
     lon_min, lon_max = bbox.lonWest, bbox.lonEast
-
     if contains_pole:
         outline = outline_fn()
         outline[:, 0], outline[:, 1] = _rotate_pole_deg(
             outline[:, 0], outline[:, 1], 90.0, altitude)
         lat_min, lat_max = outline[:, 0].min(), outline[:, 0].max()
         lon_min, lon_max = outline[:, 1].min(), outline[:, 1].max()
-        la, lo = _rotate_pole_deg(lats_center.ravel(), lons_center.ravel(),
-                                  90.0, altitude)
-        lats_center = la.reshape(lats_center.shape)
-        lons_center = lo.reshape(lons_center.shape)
         outline_fn = lambda: outline
-    elif contains_discontinuity:
+    elif shift:
         outline = outline_fn()
         outline[:, 1] = _wrap_lon_np(outline[:, 1] + 180.0)
         lon_min, lon_max = outline[:, 1].min(), outline[:, 1].max()
-        lons_center = _wrap_lon_np(lons_center + 180.0)
         outline_fn = lambda: outline
 
     grid = fixed_grid(px_per_deg, lat_min, lat_max, lon_min, lon_max)
     lat_grid, lon_grid = grid.corner_grids()
     lat_grid_c, lon_grid_c = grid.center_grids()
-    if method == "mean":
-        data_r = _bin_mean_on(device, grid, lats_center, lons_center, data,
-                              bin_method)
-    else:
-        data_r = _interpolate(method, device, grid, lats_center, lons_center,
-                              data)
-        # mask cells outside the (concave) outline: griddata only clips to
-        # the convex hull (reference resample.py:248-259)
-        flat = np.stack([lat_grid.ravel(), lon_grid.ravel()], axis=-1)
-        outside = ~points_inside_polygon(flat, outline_fn()).reshape(
-            lat_grid.shape)
-        cell_outside = (outside[:-1, :-1] | outside[1:, :-1]
-                        | outside[:-1, 1:] | outside[1:, 1:])
-        data_r[cell_outside] = np.nan
-
+    corners = (lat_grid, lon_grid)
     if contains_pole:
         def unrotate(la, lo):
             la2, lo2 = _rotate_pole_deg(la.ravel(), lo.ravel(), -90.0,
@@ -326,11 +278,95 @@ def _resample(lats_center, lons_center, altitude, data, outline_fn, bbox,
 
         lat_grid, lon_grid = unrotate(lat_grid, lon_grid)
         lat_grid_c, lon_grid_c = unrotate(lat_grid_c, lon_grid_c)
-    elif contains_discontinuity:
+    elif shift:
         lon_grid = _wrap_lon_np(lon_grid + 180.0)
         lon_grid_c = _wrap_lon_np(lon_grid_c + 180.0)
+    return grid, outline_fn, corners, (lat_grid, lon_grid, lat_grid_c,
+                                       lon_grid_c)
 
-    return lat_grid, lon_grid, lat_grid_c, lon_grid_c, data_r
+
+def _resample_mapping(mapping, px_per_deg, arcsec_per_px, contains_pole,
+                      method, bin_method, device):
+    """:func:`resample` of one Mapping: the target grid, the samples in its
+    frame, their binning or interpolation on ``device``, the Mapping."""
+    altitude = mapping.altitude
+    with span("resample.grid"):
+        bbox = mapping.boundingBox
+        if contains_pole is None:
+            contains_pole = bbox.containsPole
+        if arcsec_per_px:
+            px_per_deg = plate_carree_resolution(bbox, arcsec_per_px)
+        else:
+            try:
+                _, _ = px_per_deg
+            except TypeError:
+                px_per_deg = (px_per_deg, px_per_deg)
+        shift = not contains_pole and bbox.containsDiscontinuity
+        grid, outline_fn, corners, grids = _target_grid(
+            lambda: mapping.outline.copy(), bbox, px_per_deg, contains_pole,
+            shift, altitude)
+
+    with span("resample.prepare"):
+        img = mapping.img
+        img_dtype = img.dtype
+        if method == "nearest" and device.type == "cuda":
+            method = "nearest_device"
+        elif method == "nearest_host":
+            method = "nearest"
+        if bin_method == "auto" and method == "mean":
+            n_ch = img.shape[2] if img.ndim == 3 else 1
+            on_gpu = device.type == "cuda"
+            if on_gpu and img_dtype == np.uint8 and n_ch == 3 and \
+                    mapping.elevation is not None:
+                # K1; its NaN-data-adds-0 contract equals taint semantics
+                # here: mask invariants put NaN data only at NaN coordinates
+                bin_method = "pallas_rgbelev"
+            elif on_gpu and img_dtype == np.uint8:
+                bin_method = "pallas_taint"
+            else:
+                bin_method = "sorted"
+        elif bin_method == "auto":
+            bin_method = "sorted"
+        img3 = img if img.ndim == 3 else img[:, :, None]
+        parts = [np.asarray(img3.astype(np.float64).filled(np.nan))]
+        has_elevation = mapping.elevation is not None
+        if has_elevation:  # CDF/netCDF files without zenith_angle have none
+            parts.append(
+                np.asarray(mapping.elevation.filled(np.nan))[:, :, None])
+        data = np.concatenate(parts, axis=-1)
+        lats_center = np.asarray(mapping.latsCenter.filled(np.nan))
+        lons_center = np.asarray(mapping.lonsCenter.filled(np.nan))
+        if contains_pole:
+            la, lo = _rotate_pole_deg(lats_center.ravel(),
+                                      lons_center.ravel(), 90.0, altitude)
+            lats_center = la.reshape(lats_center.shape)
+            lons_center = lo.reshape(lons_center.shape)
+        elif shift:
+            lons_center = _wrap_lon_np(lons_center + 180.0)
+
+    if method == "mean":
+        data_r = _bin_mean_on(device, grid, lats_center, lons_center, data,
+                              bin_method)
+    else:
+        data_r = _interpolate(method, device, grid, lats_center, lons_center,
+                              data)
+        # mask cells outside the (concave) outline: griddata only clips to
+        # the convex hull (reference resample.py:248-259)
+        flat = np.stack([corners[0].ravel(), corners[1].ravel()], axis=-1)
+        outside = ~points_inside_polygon(flat, outline_fn()).reshape(
+            corners[0].shape)
+        cell_outside = (outside[:-1, :-1] | outside[1:, :-1]
+                        | outside[:-1, 1:] | outside[1:, 1:])
+        data_r[cell_outside] = np.nan
+
+    with span("resample.finish"):
+        img_r = data_r[..., :-1] if has_elevation else data_r
+        elevation_r = data_r[..., -1] if has_elevation else None
+        if np.issubdtype(img_dtype, np.integer):
+            img_r = _finalize_int_image(img_r, img_dtype)
+        if img3.shape[2] == 1:
+            img_r = img_r[..., 0]
+        return mapping.createResampled(*grids, elevation_r, img_r)
 
 
 def _min_lon_interval_deg(lons):

@@ -53,7 +53,9 @@ only the port is installed:
   CPU's; ``resample`` of it launches K1; its CDF and NETCDF3 exports read
   back and resampled on the card give the same uint8 image; the TLE camera
   position through ``create_mapping`` on the card; ``profiling.benchmark``
-  times CUDA outputs with events.
+  times CUDA outputs with events, and ``profiling.span`` the stream; the
+  fused frame and the library slice record their spans in order, with
+  stream times and the bytes of each copy.
 * The solving path's checks on the card against the CPU:
   ``is_consistent``/``intersects_earth`` on the ISS030 header and on it
   turned to nadir and zenith (the same booleans, float64 latitudes within
@@ -953,15 +955,68 @@ def test_tle_position_mapping_gpu(cuda, tmp_path):
 
 @pytest.mark.gpu
 def test_profiling_benchmark_uses_cuda_events(cuda):
-    from auromat_tpu_torch.profiling import StageTimer, benchmark
+    from auromat_tpu_torch.profiling import benchmark, recording, span
 
     x = torch.ones(1 << 20, device=cuda)
     med, times = benchmark(lambda: x * 2, iters=5)
     assert len(times) == 5 and 0 < med < 1.0
-    timer = StageTimer()
-    with timer("mul") as stage:
-        stage.sync(x * 3)
-    assert timer.total("mul") > 0
+    with recording() as rec:
+        with span("mul", stream=cuda):
+            for _ in range(20):
+                x = x * 3
+    (mul,) = rec.spans()  # resolving waits for the stream
+    assert mul.name == "mul" and 0 < mul.device_ms < 1000.0 and mul.ms > 0
+
+
+@pytest.mark.gpu
+def test_spans_on_the_card_time_the_stream_and_count_the_copies(cuda):
+    """The fused frame and the library slice on the card under
+    ``recording``: stream times on the georeference and bin-index stages,
+    K1's status read as a wait, and the bytes each copy moves, reckoned
+    from the shapes."""
+    from auromat_tpu_torch.mapping.astrometry import create_mapping
+    from auromat_tpu_torch.mapping.spacecraft import resolve_camera_position
+    from auromat_tpu_torch.ops.georef import DynGeorefParams, GeorefParams
+    from auromat_tpu_torch.ops.georegrid import georegrid_mean
+    from auromat_tpu_torch.ops.regrid import fixed_grid
+    from auromat_tpu_torch.profiling import recording
+    from auromat_tpu_torch.resample import resample
+
+    h, w = 384, 512
+    header = _scaled_header(w, h)
+    pos, t, _ = resolve_camera_position(header)
+    img = np.random.default_rng(4).integers(0, 256, (h, w, 3)).astype(np.uint8)
+    dyn = DynGeorefParams.from_static(
+        GeorefParams.from_wcs(TanWcs(header), pos, t, altitude=110.0),
+        device=cuda, dtype=torch.float32)
+    grid = fixed_grid((36, 25), 47.0, 62.0, -112.0, -91.0)
+    chw = torch.from_numpy(img).to(cuda).permute(2, 0, 1).float().contiguous()
+    with recording() as rec:
+        georegrid_mean(grid, dyn, chw)
+        m = create_mapping(header, img, pos, t, fast_center=False, device=cuda)
+        r = resample(m, arcsec_per_px=100, device=cuda)
+    got = rec.spans()
+    names = [s.name for s in got]
+    assert names == [
+        "georegrid", "georegrid.georef", "georegrid.bin_indices", "k1.wait",
+        "create_mapping", "create_mapping.to_host", "create_mapping.masks",
+        "resample", "resample.grid", "resample.prepare", "resample.to_device",
+        "resample.bin", "georegrid", "georegrid.bin_indices", "k1.wait",
+        "resample.to_host", "resample.finish"]
+    for s in got:
+        if s.name in ("georegrid.georef", "georegrid.bin_indices"):
+            assert 0 < s.device_ms < 1000.0
+        else:
+            assert s.device_ms is None
+    nbytes = {s.name: s.nbytes for s in got if s.nbytes is not None}
+    corners, centres = (h + 1) * (w + 1), h * w
+    # lats, lons, mlat, mlt at the corners; lat/lon, elevation, mlat/mlt
+    # at the centres, float64
+    assert nbytes["create_mapping.to_host"] == 8 * (4 * corners + 5 * centres)
+    # the centres and the (R, G, B, elevation) samples, float64
+    assert nbytes["resample.to_device"] == 8 * (2 * centres + 4 * centres)
+    # K1's float32 means of the grid
+    assert nbytes["resample.to_host"] == 4 * r.img.shape[0] * r.img.shape[1] * 4
 
 
 @pytest.mark.gpu
