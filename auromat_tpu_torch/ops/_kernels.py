@@ -127,6 +127,14 @@ GEOREGRID_BIN = CudaKernel("georegrid_bin.cu", "georegrid_bin_launch", _K1_ARGS)
 GEOREGRID_BIN_I8 = CudaKernel("georegrid_bin.cu", "georegrid_bin_i8_launch",
                               _K1_ARGS)
 
+# GEOREF_CELLS (ops/georegrid.py::georef_cells): the float32 georeference
+# chain and its cells in one pass, bit-equal to the eager chain on the card;
+# XLA fuses that chain on the TPU, so it replaces no TPU kernel
+GEOREF_CELLS = CudaKernel("georef_cells.cu", "georef_cells_launch",
+                          [_P] * 8 + [ctypes.c_int] * 5
+                          + [ctypes.c_double] * 4 + [ctypes.c_float] * 7
+                          + [_P] * 6)
+
 _K2_ARGS = [_P, _P, _P, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, _P, _P,
             _P, _P, _P]

@@ -5,9 +5,13 @@ pipeline forward (pixel grid -> TAN unproject -> ray/ellipsoid
 intersection -> GEO rotation -> Bowring lat/lon + elevation -> fixed-grid
 bin indices -> mean binning) for one frame:
 
-- the georeference chain (:mod:`auromat_tpu_torch.ops.georef`) and the bin
-  indices (:func:`auromat_tpu_torch.ops.regrid.bin_indices`) are plain
-  elementwise tensor code;
+- the georeference chain and the bin indices are GEOREF_CELLS, a CUDA
+  kernel written by hand (``csrc/georef_cells.cu``, :func:`georef_cells`),
+  which keeps every intermediate in registers and writes K1's cells and
+  the elevation; its plain twin, on CPU tensors, is the eager chain
+  (:func:`georegrid_inputs_plain`: :mod:`auromat_tpu_torch.ops.georef` and
+  :func:`auromat_tpu_torch.ops.regrid.bin_indices`), to which the kernel is
+  bit-equal on the card;
 - the binning is K1, a CUDA kernel written by hand
   (``csrc/georegrid_bin.cu``: shared-memory tile histograms on the engine of
   ``csrc/bin_tile.cuh``, with a fused float32 epilogue), with its plain
@@ -35,10 +39,14 @@ Reference: auromat/mapping/astrometry.py:49-212 + auromat/resample.py:
 """
 
 import ctypes
+import math
 
+import numpy as np
 import torch
 
-from auromat_tpu_torch.ops._kernels import GEOREGRID_BIN, GEOREGRID_BIN_I8
+from auromat_tpu_torch.constants import WGS84_A, WGS84_B
+from auromat_tpu_torch.ops._kernels import (GEOREF_CELLS, GEOREGRID_BIN,
+                                            GEOREGRID_BIN_I8)
 from auromat_tpu_torch.ops.georef import DynGeorefParams, georef_latlon_dyn
 from auromat_tpu_torch.ops.regrid import GridSpec, bin_indices, finalize_mean
 from auromat_tpu_torch.profiling import span
@@ -49,6 +57,19 @@ ELEV_SCALE_I8 = 2.0 ** 16  # K1-i8: elevation floor-quantized to 2^-16
 _KERNELS = {"bf16": GEOREGRID_BIN, "i8": GEOREGRID_BIN_I8}
 # the most samples a cell may hold: 255 * count still fits a uint32 word
 MAX_CELL_COUNT = (2 ** 32 - 1) // 255  # 16,843,009
+
+_U = 180.0 / math.pi  # ops/georef.py::_pixel_dirs; also rad2deg's factor
+_A2_B2 = WGS84_A * WGS84_A - WGS84_B * WGS84_B  # ops/georef.py::_bowring
+# the eager chain's Python floats as torch rounds them, each a float32
+# operand of a float32 tensor op: u * u and u (_pixel_dirs), WGS84_A and
+# WGS84_B (_intersect, _bowring), _bowring's d and e2 * a, rad2deg's factor
+_CHAIN_CONSTS = tuple(float(np.float32(v)) for v in (
+    _U * _U, _U, WGS84_A, WGS84_B, _A2_B2 / WGS84_B,
+    _A2_B2 / (WGS84_A * WGS84_A) * WGS84_A, _U))
+# the calibration GEOREF_CELLS reads, with the shape of one frame's field
+_CELLS_DYN = {"cd": (2, 2), "px_ref": (), "py_ref": (), "rotmat": (3, 3),
+              "camera_pos": (3,), "altitude": (),
+              "mat_j2000_to_geo": (3, 3)}
 
 
 def _check_inputs(grid, iy, ix, img_chw, elev):
@@ -276,8 +297,29 @@ def georegrid_inputs(grid: GridSpec, dyn: DynGeorefParams, h, w, mask=None,
     of a frame; 0 and the frame's height for the whole frame), in float32
     on ``dyn``'s device.
 
+    On CUDA one launch of GEOREF_CELLS (:func:`georef_cells`) writes all
+    five planes; elsewhere the eager chain, :func:`georegrid_inputs_plain`,
+    computes them.
+
     :param mask: optional (h, w) bool, True = exclude pixel
     """
+    dev = dyn.cd.device
+    if dev.type != "cuda":
+        # the eager chain's own planes, without the copy into fresh ones
+        # that georef_cells makes on these devices
+        return georegrid_inputs_plain(grid, dyn, h, w, mask, row0)
+    iy, ix, elev = cell_planes(h, w, dev)
+    lat, lon = (torch.empty((h, w), dtype=torch.float32, device=dev)
+                for _ in range(2))
+    georef_cells(grid, dyn, iy, ix, elev, mask, row0, lat, lon)
+    return iy, ix, {"lat": lat, "lon": lon, "elevation": elev}
+
+
+def georegrid_inputs_plain(grid: GridSpec, dyn: DynGeorefParams, h, w,
+                           mask=None, row0=0):
+    """:func:`georegrid_inputs` as eager tensor code on any device: the
+    pixel grid, :func:`georef_latlon_dyn`, the float64 :func:`bin_indices`
+    and :func:`split_bin_indices`. GEOREF_CELLS's plain twin."""
     dev = dyn.cd.device
     f32 = torch.float32
     with span("georegrid.georef", stream=dev):
@@ -291,6 +333,95 @@ def georegrid_inputs(grid: GridSpec, dyn: DynGeorefParams, h, w, mask=None,
             valid &= ~mask
         iy, ix = split_bin_indices(grid, flat, valid)
     return iy, ix, out
+
+
+def cell_planes(h, w, device):
+    """Empty (iy, ix, elevation) planes, (h, w) int32, int32 and float32,
+    for :func:`georef_cells` to fill."""
+    return (torch.empty((h, w), dtype=torch.int32, device=device),
+            torch.empty((h, w), dtype=torch.int32, device=device),
+            torch.empty((h, w), dtype=torch.float32, device=device))
+
+
+def georef_cells(grid: GridSpec, dyn: DynGeorefParams, iy, ix, elev,
+                 mask=None, row0=0, lat=None, lon=None):
+    """Georeference rows ``row0 .. row0 + h - 1`` of a frame into the
+    caller's (h, w) planes: K1's cells ``iy``/``ix`` (int32, -1 = invalid,
+    the :func:`split_bin_indices` sentinel), the elevation ``elev``
+    (float32) and, where given, ``lat``/``lon`` (float32 degrees). The
+    planes may be row blocks of larger buffers (a burst's), as long as
+    each is contiguous.
+
+    A float32 calibration on CUDA launches GEOREF_CELLS once
+    (``csrc/georef_cells.cu``), bit-equal to the eager chain on the card;
+    any other dtype on CUDA raises. On other devices the eager chain
+    (:func:`georegrid_inputs_plain`) computes the planes and they are
+    copied in.
+
+    :param mask: optional (h, w) bool, True = exclude pixel
+    """
+    h, w = iy.shape
+    dev = dyn.cd.device
+    if (lat is None) != (lon is None):
+        raise ValueError("lat and lon are written together")
+    for name, t, dtype in (("iy", iy, torch.int32), ("ix", ix, torch.int32),
+                           ("elev", elev, torch.float32),
+                           ("lat", lat, torch.float32),
+                           ("lon", lon, torch.float32)):
+        if t is None:
+            continue
+        if t.dtype != dtype or tuple(t.shape) != (h, w) or t.device != dev:
+            raise ValueError(f"{name}: want {dtype} {(h, w)} on {dev}, got "
+                             f"{t.dtype} {tuple(t.shape)} on {t.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if dev.type != "cuda":
+        fiy, fix, out = georegrid_inputs_plain(grid, dyn, h, w, mask, row0)
+        for t, v in ((iy, fiy), (ix, fix), (elev, out["elevation"]),
+                     (lat, out["lat"]), (lon, out["lon"])):
+            if t is not None:
+                t.copy_(v)
+        return
+    for name, shape in _CELLS_DYN.items():
+        t = getattr(dyn, name)
+        if t.dtype != torch.float32 or tuple(t.shape) != shape:
+            raise ValueError(f"dyn.{name}: GEOREF_CELLS takes one frame's "
+                             f"float32 {shape}, got {t.dtype} "
+                             f"{tuple(t.shape)}")
+    if grid.n_lat * grid.n_lon >= 2 ** 31:
+        raise ValueError("grid too large for int32 cell indices")
+    if mask is not None:
+        if mask.dtype != torch.bool or tuple(mask.shape) != (h, w) or \
+                mask.device != dev:
+            raise ValueError(f"mask: want bool {(h, w)} on {dev}, got "
+                             f"{mask.dtype} {tuple(mask.shape)} on "
+                             f"{mask.device}")
+        mask = mask.contiguous()
+    if h * w == 0:  # nothing to launch
+        return
+    # the cells and the mask are the kernel's: no georegrid.bin_indices
+    # stage is left on this route
+    with span("georegrid.georef", stream=dev):
+        _launch_georef_cells(grid, dyn, iy, ix, elev, mask, row0, lat, lon)
+
+
+def _launch_georef_cells(grid, dyn, iy, ix, elev, mask, row0, lat, lon):
+    """One GEOREF_CELLS launch on the current stream; the arguments are
+    validated by :func:`georef_cells`."""
+    ptr = lambda t: ctypes.c_void_p(None if t is None else t.data_ptr())
+    fields = [getattr(dyn, name).contiguous() for name in _CELLS_DYN]
+    h, w = iy.shape
+    # bin_indices' edges; ATen divides a CUDA tensor by a Python float as
+    # a product with the reciprocal, rounded in float64 on the host
+    lat_hi_edge = grid.lat0 + grid.lat_step / 2
+    lon_lo_edge = grid.lon0 - grid.lon_step / 2
+    with torch.cuda.device(iy.device):
+        GEOREF_CELLS(
+            *map(ptr, fields), ptr(mask), h, w, row0, grid.n_lat, grid.n_lon,
+            lat_hi_edge, 1.0 / grid.lat_step, lon_lo_edge,
+            1.0 / grid.lon_step, *_CHAIN_CONSTS, ptr(iy), ptr(ix), ptr(elev),
+            ptr(lat), ptr(lon),
+            ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
 
 
 def georegrid_partial(grid: GridSpec, dyn: DynGeorefParams, img_chw,
@@ -312,10 +443,11 @@ def georegrid_partial(grid: GridSpec, dyn: DynGeorefParams, img_chw,
 
 def _georegrid_sums(grid, dyn, img_chw, mask):
     _, h, w = img_chw.shape
-    iy, ix, out = georegrid_inputs(grid, dyn, h, w, mask)
+    iy, ix, elev = cell_planes(h, w, dyn.cd.device)
+    georef_cells(grid, dyn, iy, ix, elev, mask)
     return bin_rgbelev_from_indices(grid, iy, ix,
                                     img_chw.to(torch.float32).contiguous(),
-                                    out["elevation"].contiguous())
+                                    elev)
 
 
 def georegrid_mean(grid: GridSpec, dyn: DynGeorefParams, img_chw, mask=None):

@@ -125,10 +125,13 @@ def bin_indices(grid: GridSpec, lats, lons):
     ranges (resample.py:330-338). Following numpy histogram semantics the
     right-most edge is inclusive.
 
-    The cell arithmetic runs in float64 with true division whatever the
-    dtype of ``lats``/``lons``: that is what the JAX package computes
+    The cell arithmetic runs in float64 whatever the dtype of
+    ``lats``/``lons``: that is what the JAX package computes
     (``fixed_grid``'s float64 edges promote its f32 coordinates under x64),
     and it is the only form that puts every f32 sample in the same cell.
+    The division by the step is a true division on the CPU; on CUDA, ATen
+    computes a tensor divided by a Python float as a product with the
+    reciprocal rounded on the host (GEOREF_CELLS does the same).
     Validity is decided on the float values, so a NaN, inf or out-of-range
     coordinate is never cast to int32.
 

@@ -32,7 +32,7 @@ import torch.distributed as dist
 from auromat_tpu_torch.ops.georef import compute_device, georef_latlon_dyn
 from auromat_tpu_torch.ops.georegrid import (bin_rgbelev_int, finish_int_sums,
                                              bin_rgbelev_plain_int,
-                                             georegrid_inputs)
+                                             georef_cells)
 from auromat_tpu_torch.ops.regrid import (_BIN_METHODS, GridSpec, bin_indices,
                                           bin_partial, finalize_mean, round_up)
 from auromat_tpu_torch.profiling import span
@@ -281,19 +281,16 @@ class GridShardedStep:
         iy = torch.empty((n, w), dtype=torch.int32, device=dev)
         ix = torch.empty_like(iy)
         elev = torch.empty((n, w), dtype=torch.float32, device=dev)
-        # one frame's georeference at a time: only its bin indices and
-        # elevation stay alive for the burst's single K1 call
+        # each frame's cells and elevation go straight into its rows of the
+        # burst's planes, for the burst's single K1 call
         for i in range(nb):
-            fiy, fix, out = georegrid_inputs(
-                self.grid, dyn.frame(f0 + i), rows, w,
-                row0=self.mesh.sp_index * rows)
-            if self.min_elevation is not None:
-                keep = self._keep(out["elevation"])
-                fiy = torch.where(keep, fiy, -1)
-                fix = torch.where(keep, fix, -1)
             sl = slice(i * rows, (i + 1) * rows)
-            iy[sl], ix[sl], elev[sl] = fiy, fix, out["elevation"]
-            del fiy, fix, out
+            georef_cells(self.grid, dyn.frame(f0 + i), iy[sl], ix[sl],
+                         elev[sl], row0=self.mesh.sp_index * rows)
+            if self.min_elevation is not None:
+                drop = ~self._keep(elev[sl])
+                iy[sl].masked_fill_(drop, -1)
+                ix[sl].masked_fill_(drop, -1)
         img_chw = torch.empty((3, n, w), dtype=torch.float32, device=dev)
         img_chw.view(3, nb, rows, w).copy_(imgs_local.permute(3, 0, 1, 2))
         # bin straight into the band-padded grid (the indices come from the

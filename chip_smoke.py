@@ -17,9 +17,12 @@ constellation overlays), and checks them:
 
 1. the card (``nvidia-smi`` name and power limit);
 2. starts the build of every kernel source from this checkout, one nvcc
-   each, all at once, and waits for K1's (``ops/csrc/georegrid_bin.cu``);
-3. K1 against its plain PyTorch version on the card at the frame's shapes:
-   all five outputs must be bit-equal;
+   each, all at once, and waits for K1's (``ops/csrc/georegrid_bin.cu``)
+   and GEOREF_CELLS's (``ops/csrc/georef_cells.cu``);
+3. GEOREF_CELLS against its plain twin, the eager chain, on the frame: iy,
+   ix, lat, lon and elevation bit-equal; K1 against its plain PyTorch
+   version on the card at the frame's shapes: all five outputs must be
+   bit-equal;
 4. the main path on a few frames (one masked), with the kernel launch
    counters zeroed just before and read just after: every kernel must have
    launched, the counts must equal the valid samples, the latitudes must
@@ -27,7 +30,7 @@ constellation overlays), and checks them:
    same path with the plain binning; the float64 chain on the card must
    match the executed-reference golden to < 1e-6 deg;
 5. times (CUDA events, after warm-up): the main path per frame, K1 against
-   its plain version;
+   its plain version, GEOREF_CELLS against the eager chain;
 6. waits for the other builds: K2/K3 (``ops/csrc/regrid_bin.cu``) and
    K1-i8 (the i8 entry point of K1's library);
 7. at the full frame's bin indices: K2 in its 'uint8', 'full' and 'raw'
@@ -813,14 +816,15 @@ def mosaic_phases(torch, np, card):
     from auromat_tpu_torch.ops.georef import DynGeorefParams
     from auromat_tpu_torch.ops.georegrid import (bin_rgbelev_int,
                                                  bin_rgbelev_plain_int,
-                                                 georegrid_inputs)
+                                                 georegrid_inputs_plain)
     from auromat_tpu_torch.ops.regrid import fixed_grid, round_up
     from auromat_tpu_torch.parallel import (make_grid_sharded_mosaic_step,
                                             make_mesh, mosaic_sequence)
 
     dev = torch.device("cuda")
     k1 = _kernels.GEOREGRID_BIN
-    all_kernels = (k1, _kernels.GEOREGRID_BIN_I8, _kernels.REGRID_BIN,
+    gc = _kernels.GEOREF_CELLS
+    all_kernels = (k1, gc, _kernels.GEOREGRID_BIN_I8, _kernels.REGRID_BIN,
                    _kernels.REGRID_BIN_V1)
     params, times, imgs = seq_frames(np)
     n_seq, h, w = imgs.shape[:3]
@@ -830,7 +834,8 @@ def mosaic_phases(torch, np, card):
     # -- 10. K1 on an 8-frame stacked burst ---------------------------------
     g5_pad = dataclasses.replace(g5, n_lat=round_up(g5.n_lat, 8))
     dyn = DynGeorefParams.stack(params[:8], device=dev)
-    parts = [georegrid_inputs(g5, dyn.frame(i), h, w) for i in range(8)]
+    # the eager chain's cells: K1 is checked here, not GEOREF_CELLS
+    parts = [georegrid_inputs_plain(g5, dyn.frame(i), h, w) for i in range(8)]
     iy8 = torch.cat([p[0] for p in parts])
     ix8 = torch.cat([p[1] for p in parts])
     el8 = torch.cat([p[2]["elevation"] for p in parts])
@@ -870,9 +875,9 @@ def mosaic_phases(torch, np, card):
     del iy8, ix8, el8, img8
 
     # -- 11. the sequence-mosaic path -----------------------------------------
-    n_valid = n_high = 0
+    n_valid = n_high = 0  # from the eager chain, apart from the path's kernel
     for p in params:
-        iy, _, out = georegrid_inputs(
+        iy, _, out = georegrid_inputs_plain(
             g5, DynGeorefParams.from_static(p, dev, torch.float32), h, w)
         n_valid += int((iy >= 0).sum().item())
         n_high += int(((iy >= 0) & (out["elevation"] >= 10.0)).sum().item())
@@ -883,9 +888,13 @@ def mosaic_phases(torch, np, card):
     count, means = mosaic_sequence(mesh, g5, bursts, batch=8,
                                    bin_method="pallas")
     torch.cuda.synchronize()
-    seq_launches = k1.launches
+    seq_launches, gc_launches = k1.launches, gc.launches
     if seq_launches < 1:
         raise AssertionError("the sequence-mosaic path never launched K1")
+    n_slots = -(-n_seq // 8) * 8  # the last step padded with null frames
+    if gc_launches != n_slots:
+        raise AssertionError(f"the sequence-mosaic path launched GEOREF_CELLS "
+                             f"{gc_launches} times for {n_slots} frame slots")
     if tuple(count.shape) != (g5_pad.n_lat, g5.n_lon) or \
             tuple(means.shape) != (g5_pad.n_lat, g5.n_lon, 4):
         raise AssertionError(f"mosaic shapes {tuple(count.shape)} "
@@ -908,7 +917,8 @@ def mosaic_phases(torch, np, card):
         raise AssertionError(f"min_elevation=10: {n_masked} != {n_high}")
     print(f"[11] mosaic_sequence(batch=8) of {n_seq} frames "
           f"({os.path.basename(SEQ_WCS[0])}..) -> {g5.n_lat}x{g5.n_lon}: "
-          f"{seq_launches} launches of K1, {total} samples into "
+          f"{seq_launches} launches of K1, {gc_launches} of GEOREF_CELLS "
+          f"(one a frame slot), {total} samples into "
           f"{int(filled.sum().item())} cells (= the frames' valid samples), "
           f"== plain binning, == one 10-frame step (bit-equal, elevation "
           f"too); min_elevation=10: {n_high} samples", flush=True)
@@ -3248,7 +3258,10 @@ def main():
                                               georef_latlon_dyn)
     from auromat_tpu_torch.ops.georegrid import (bin_rgbelev_from_indices,
                                                  bin_rgbelev_plain,
-                                                 georegrid_inputs, launch_k1)
+                                                 cell_planes, georef_cells,
+                                                 georegrid_inputs,
+                                                 georegrid_inputs_plain,
+                                                 launch_k1)
     from auromat_tpu_torch.ops.regrid import finalize_mean
 
     dev = torch.device("cuda")
@@ -3257,10 +3270,12 @@ def main():
           f"{torch.__version__} cuda {torch.version.cuda}", flush=True)
 
     # -- 2. build every kernel source at once; wait for K1's ---------------
-    builds = start_builds([_kernels.GEOREGRID_BIN, _kernels.REGRID_BIN,
-                           _kernels.HOUGH_P, _kernels.HOUGH_ORDER,
-                           _kernels.CCL8, _kernels.CONTOUR_TRACE])
-    kernels = {"K1": _kernels.GEOREGRID_BIN}
+    builds = start_builds([_kernels.GEOREGRID_BIN, _kernels.GEOREF_CELLS,
+                           _kernels.REGRID_BIN, _kernels.HOUGH_P,
+                           _kernels.HOUGH_ORDER, _kernels.CCL8,
+                           _kernels.CONTOUR_TRACE])
+    kernels = {"K1": _kernels.GEOREGRID_BIN,
+               "GEOREF_CELLS": _kernels.GEOREF_CELLS}
     for name, k in kernels.items():
         secs = builds[k.source].result()
         print(f"[2] built {name} ({k.source}) in {secs:.2f} s "
@@ -3277,6 +3292,23 @@ def main():
     masks = [None] * (N_FRAMES - 1) + [mask]
 
     iy, ix, out = georegrid_inputs(grid, dyn, h, w)
+    plain_cells = georegrid_inputs_plain(grid, dyn, h, w)
+    torch.cuda.synchronize()
+    bits = lambda t: t.view(torch.int32) if t.is_floating_point() else t
+    gc_err = 0.0  # the largest gap where both are numbers
+    for n, a, b in zip(("iy", "ix", "lat", "lon", "elevation"),
+                       (iy, ix, out["lat"], out["lon"], out["elevation"]),
+                       (*plain_cells[:2], *(plain_cells[2][k] for k in (
+                           "lat", "lon", "elevation")))):
+        nan = b != b
+        if not (torch.equal(a != a, nan)
+                and torch.equal(bits(a)[~nan], bits(b)[~nan])):
+            raise AssertionError(f"GEOREF_CELLS != the eager chain on {n}")
+        gap = (a[~nan].double() - b[~nan].double()).abs()
+        gc_err = max(gc_err, float(gap.max().item()) if gap.numel() else 0.0)
+    del plain_cells, gap
+    print(f"[3] GEOREF_CELLS == the eager chain bit for bit on iy, ix, lat, "
+          f"lon and elevation at {h}x{w}", flush=True)
     elev = out["elevation"]
     k_args = (grid, iy, ix, frames[0], elev)
     kc, ks = bin_rgbelev_from_indices(*k_args)
@@ -3308,12 +3340,16 @@ def main():
     for name, n in launches.items():
         if n < 1:
             raise AssertionError(f"the main path never launched {name}")
+    if launches["GEOREF_CELLS"] != N_FRAMES:
+        raise AssertionError(f"GEOREF_CELLS launched {launches['GEOREF_CELLS']}"
+                             f" times for {N_FRAMES} frames, not once each")
 
     for i, ((count, means), img, m) in enumerate(zip(results, frames, masks)):
         if count.shape != (grid.n_lat, grid.n_lon) or \
                 means.shape != (grid.n_lat, grid.n_lon, 4):
             raise AssertionError(f"frame {i}: shapes {count.shape} {means.shape}")
-        fiy, fix, fout = georegrid_inputs(grid, dyn, h, w, m)
+        # the reference's cells from the eager chain, not the kernel
+        fiy, fix, fout = georegrid_inputs_plain(grid, dyn, h, w, m)
         valid = int((fiy >= 0).sum().item())
         if int(count.sum().item()) != valid or valid == 0:
             raise AssertionError(f"frame {i}: count {count.sum().item()} != "
@@ -3334,7 +3370,8 @@ def main():
             raise AssertionError(f"frame {i}: main path != plain binning path")
         print(f"[4] frame {i}{' (masked)' if m is not None else ''}: "
               f"{valid} samples into {int(filled.sum().item())} cells, lat "
-              f"[{lo:.3f}, {hi:.3f}], == plain binning path", flush=True)
+              f"[{lo:.3f}, {hi:.3f}], == the eager chain + plain binning; "
+              f"GEOREF_CELLS launched once a frame", flush=True)
 
     golden = np.load(GOLDEN)
     header = fits.read_header(fits_path := os.path.join(
@@ -3406,10 +3443,28 @@ def main():
           f"{bound_ms(bin_bytes(4, iy.numel(), iy.numel(), 4, n_cells, 5)):.4f}"
           f" ms counting every sample's data); on {card}", flush=True)
 
+    planes = cell_planes(h, w, dev)
+    gc_ms, gc_plain_ms, gc_runs, gc_plain_runs = in_turns(
+        torch, lambda: georef_cells(grid, dyn, *planes),
+        lambda: georegrid_inputs_plain(grid, dyn, h, w))
+    del planes
+    gc_bytes = 12 * h * w  # iy, ix and the elevation written
+    print(f"[5] GEOREF_CELLS {gc_ms:.4f} ms vs the eager chain "
+          f"{gc_plain_ms:.3f} ms (runs {[round(t, 4) for t in gc_runs]} / "
+          f"{[round(t, 3) for t in gc_plain_runs]}); bound "
+          f"{bound_ms(gc_bytes):.4f} ms ({gc_bytes} bytes at 3.35 TB/s); on "
+          f"{card}", flush=True)
+
     rows = [kernel_row("georegrid_bin (K1)",
                        "auromat_tpu_torch/ops/csrc/georegrid_bin.cu",
                        "auromat_tpu/ops/georegrid.py:65", launches["K1"],
-                       k1_err, k1_ms, plain_ms, k1_bytes, lib_ms)]
+                       k1_err, k1_ms, plain_ms, k1_bytes, lib_ms),
+            kernel_row("georef_cells (GEOREF_CELLS)",
+                       "auromat_tpu_torch/ops/csrc/georef_cells.cu",
+                       "none (XLA's fusion of auromat_tpu/ops/georef.py::"
+                       "georef_latlon_dyn and the cells)",
+                       launches["GEOREF_CELLS"], gc_err, gc_ms, gc_plain_ms,
+                       gc_bytes, None)]
     rows += slice_phases(torch, np, builds, grid, iy, ix, out, card)
     del iy, ix, out, elev, k_args
     rows.append(mosaic_phases(torch, np, card))

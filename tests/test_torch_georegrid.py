@@ -16,6 +16,11 @@
   class of tests/test_georegrid.py::test_matches_oracle: the two f32
   georef chains round differently (fma contraction), so a pixel on a cell
   edge may flip to the neighbouring cell.
+* CPU tensors take GEOREF_CELLS's plain twin, the eager chain: the same
+  bits as the chain written out, row blocks written straight into a
+  burst's planes, no launch of the kernel; the planes' refusals; the
+  kernel's float32 constants are torch's roundings of the chain's Python
+  floats.
 * A CUDA request on a machine without CUDA raises.
 
 K1 on the card is tested in tests/test_torch_gpu.py.
@@ -33,13 +38,16 @@ from auromat_tpu.ops.georegrid import georegrid_mean as jax_georegrid_mean
 from auromat_tpu.ops.regrid import fixed_grid as jax_fixed_grid
 from auromat_tpu_torch.entry import entry, frame_setup
 from auromat_tpu_torch.ops import _kernels
-from auromat_tpu_torch.ops.georef import dyn_params_from_numpy
-from auromat_tpu_torch.ops.georegrid import (bin_mean_rgbelev,
+from auromat_tpu_torch.constants import WGS84_A, WGS84_B
+from auromat_tpu_torch.ops.georef import (dyn_params_from_numpy,
+                                          georef_latlon_dyn)
+from auromat_tpu_torch.ops.georegrid import (_CHAIN_CONSTS, bin_mean_rgbelev,
                                              bin_rgbelev_from_indices,
-                                             bin_rgbelev_plain,
-                                             georegrid_inputs, georegrid_mean,
-                                             georegrid_partial)
-from auromat_tpu_torch.ops.regrid import fixed_grid
+                                             bin_rgbelev_plain, cell_planes,
+                                             georef_cells, georegrid_inputs,
+                                             georegrid_mean, georegrid_partial,
+                                             split_bin_indices)
+from auromat_tpu_torch.ops.regrid import bin_indices, fixed_grid
 from test_georegrid import small_params
 
 GRID_ARGS = ((36, 25), 47.0, 62.0, -112.0, -91.0)
@@ -215,6 +223,116 @@ def test_georegrid_mean_matches_jax(setup, masked):
                                     torch.from_numpy(mask))
         assert c.sum() == (iy.numpy() >= 0).sum()
         assert np.all(iy.numpy()[: h // 2] == -1)
+
+
+def _bits(t):
+    return t.numpy().view(np.int32) if t.dtype == torch.float32 else t.numpy()
+
+
+def eager_chain(grid, dyn, h, w, mask=None, row0=0):
+    """The eager chain written out: georef_latlon_dyn on the pixel grid,
+    the float64 bin_indices, the mask, split_bin_indices."""
+    px = torch.arange(w, dtype=torch.float32)[None].expand(h, w)
+    py = torch.arange(row0, row0 + h, dtype=torch.float32)[:, None].expand(h, w)
+    out = georef_latlon_dyn(dyn, px, py, dtype=torch.float32,
+                            with_elevation=True)
+    flat, valid = bin_indices(grid, out["lat"], out["lon"])
+    if mask is not None:
+        valid &= ~mask
+    return (*split_bin_indices(grid, flat, valid), out)
+
+
+@pytest.mark.parametrize("case", ["frame", "masked", "row_block"])
+def test_georegrid_inputs_cpu_is_the_eager_chain(setup, case):
+    """CPU tensors take GEOREF_CELLS's plain twin, the eager chain: the same
+    bits on all five planes, and no launch of the kernel."""
+    _, dyn, img = setup
+    h, w = img.shape[1:]
+    grid = fixed_grid(*GRID_ARGS)
+    mask, row0 = None, 0
+    if case == "masked":
+        mask = torch.zeros((h, w), dtype=torch.bool)
+        mask[::3, 5:70] = True
+    if case == "row_block":
+        h, row0 = 40, 37
+    before = _kernels.GEOREF_CELLS.launches
+    iy, ix, out = georegrid_inputs(grid, dyn, h, w, mask, row0)
+    wiy, wix, want = eager_chain(grid, dyn, h, w, mask, row0)
+    assert _kernels.GEOREF_CELLS.launches == before
+    assert np.array_equal(_bits(iy), _bits(wiy))
+    assert np.array_equal(_bits(ix), _bits(wix))
+    for k in ("lat", "lon", "elevation"):
+        assert np.array_equal(_bits(out[k]), _bits(want[k])), k
+    assert (iy.numpy() >= 0).sum() > 1000 and bool(torch.isnan(out["lat"]).any())
+
+
+def test_georef_cells_cpu_fills_a_burst(setup):
+    """Two row blocks written straight into a burst's planes, as the
+    mosaic step writes its frames: each equal to the eager chain."""
+    _, dyn, img = setup
+    h, w = img.shape[1:]
+    grid = fixed_grid(*GRID_ARGS)
+    iy, ix, elev = cell_planes(2 * h, w, "cpu")
+    lat = torch.empty((h, w))
+    lon = torch.empty((h, w))
+    before = _kernels.GEOREF_CELLS.launches
+    georef_cells(grid, dyn, iy[:h], ix[:h], elev[:h], lat=lat, lon=lon)
+    georef_cells(grid, dyn, iy[h:], ix[h:], elev[h:], row0=24)
+    assert _kernels.GEOREF_CELLS.launches == before
+    for rows, row0, ll in ((slice(0, h), 0, (lat, lon)),
+                           (slice(h, 2 * h), 24, None)):
+        wiy, wix, want = eager_chain(grid, dyn, h, w, row0=row0)
+        assert np.array_equal(_bits(iy[rows]), _bits(wiy))
+        assert np.array_equal(_bits(ix[rows]), _bits(wix))
+        assert np.array_equal(_bits(elev[rows]), _bits(want["elevation"]))
+        if ll is not None:
+            assert np.array_equal(_bits(ll[0]), _bits(want["lat"]))
+            assert np.array_equal(_bits(ll[1]), _bits(want["lon"]))
+
+
+def test_georegrid_partial_cpu_bins_the_eager_cells(setup):
+    _, dyn, img = setup
+    grid = fixed_grid(*GRID_ARGS)
+    iy, ix, want = eager_chain(grid, dyn, *img.shape[1:])
+    t = torch.from_numpy(img)
+    pc, ps = bin_rgbelev_plain(grid, iy, ix, t, want["elevation"])
+    c, s = georegrid_partial(grid, dyn, t)
+    assert torch.equal(c, pc) and torch.equal(s, ps)
+
+
+@pytest.mark.parametrize("bad", ["shape", "dtype", "strided", "lat_alone",
+                                 "device"])
+def test_georef_cells_refuses_bad_planes(setup, bad):
+    _, dyn, img = setup
+    h, w = img.shape[1:]
+    iy, ix, elev = cell_planes(h, w, "cpu")
+    kw = {}
+    if bad == "shape":
+        elev = elev[:-1]
+    if bad == "dtype":
+        ix = ix.long()
+    if bad == "strided":
+        iy = torch.empty((w, h), dtype=torch.int32).t()
+    if bad == "lat_alone":
+        kw["lat"] = torch.empty((h, w))
+    if bad == "device":
+        elev = elev.to("meta")
+    before = _kernels.GEOREF_CELLS.launches
+    with pytest.raises(ValueError):
+        georef_cells(fixed_grid(*GRID_ARGS), dyn, iy, ix, elev, **kw)
+    assert _kernels.GEOREF_CELLS.launches == before
+
+
+def test_chain_constants_round_as_torch():
+    """GEOREF_CELLS's float32 constants are the eager chain's Python floats
+    as torch rounds them when they meet a float32 tensor."""
+    u = 180.0 / np.pi
+    a2b2 = WGS84_A * WGS84_A - WGS84_B * WGS84_B
+    floats = (u * u, u, WGS84_A, WGS84_B, a2b2 / WGS84_B,
+              a2b2 / (WGS84_A * WGS84_A) * WGS84_A)
+    one = torch.ones((), dtype=torch.float32)
+    assert _CHAIN_CONSTS[:6] == tuple((one * v).item() for v in floats)
+    assert _CHAIN_CONSTS[6] == torch.rad2deg(one).item()
 
 
 def test_bin_mean_rgbelev_matches_partial(setup):

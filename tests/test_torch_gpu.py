@@ -16,6 +16,13 @@ only the port is installed:
   edge may move to the neighbouring cell; the bounds are those of the CPU
   comparison with the JAX package (tests/test_torch_georegrid.py).
 * The wrapper refuses what the kernel does not take.
+* GEOREF_CELLS (``ops/csrc/georef_cells.cu``) against its plain twin, the
+  eager chain, on the same CUDA calibration: iy, ix, lat, lon and
+  elevation bit-equal (NaN where NaN) on the small frame (unmasked,
+  masked, a row block from row 37; its sky rows miss the ellipsoid), the
+  full 4256x2832 frame, a camera inside the inflated ellipsoid and a grid
+  whose far edges a sample hits exactly; one launch a ``georegrid_mean``
+  and one a frame of a mosaic step; its refusals.
 * K2 in every mode (and the taint stack), K3's entry and K1-i8 against
   their plain versions at the full frame's bin indices: bit-equal.
 * ``resample`` on the card (the K1 and K2 routes) against ``resample`` on
@@ -417,6 +424,158 @@ def test_grid_sharded_step_on_cuda(cuda):
     assert np.abs(d).max() <= 1 and (d != 0).mean() < 1e-2
     ok = ((d == 0) & (c > 0))[..., None] & ~np.isnan(cm)
     assert_allclose(m[ok], cm[ok], rtol=1e-3, atol=0.05)
+
+
+def assert_bits_equal(got, want, what):
+    """Equal bit for bit (-0.0 and 0.0 apart), NaN where NaN (any
+    payload)."""
+    nan = torch.isnan(want)
+    assert torch.equal(torch.isnan(got), nan), what
+    g, w = got.contiguous(), want.contiguous()
+    if g.dtype == torch.float32:
+        g, w = g.view(torch.int32), w.view(torch.int32)
+    assert torch.equal(g[~nan], w[~nan]), what
+
+
+def assert_cells_equal_eager(grid, dyn, h, w, mask=None, row0=0):
+    """GEOREF_CELLS (``georegrid_inputs`` on the card) against its eager
+    twin on the same CUDA calibration, bit for bit on all five planes;
+    returns the kernel's planes."""
+    from auromat_tpu_torch.ops.georegrid import georegrid_inputs_plain
+
+    before = _kernels.GEOREF_CELLS.launches
+    iy, ix, out = georegrid_inputs(grid, dyn, h, w, mask, row0)
+    assert _kernels.GEOREF_CELLS.launches == before + 1
+    piy, pix, pout = georegrid_inputs_plain(grid, dyn, h, w, mask, row0)
+    torch.cuda.synchronize()
+    assert_bits_equal(iy, piy, "iy")
+    assert_bits_equal(ix, pix, "ix")
+    for k in ("lat", "lon", "elevation"):
+        assert_bits_equal(out[k], pout[k], k)
+    return iy, ix, out
+
+
+def _scaled_dyn(cuda, **changes):
+    import dataclasses
+
+    p = dataclasses.replace(small_params(), **changes)
+    return DynGeorefParams.from_static(p, cuda, torch.float32), p.height, p.width
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["small", "masked", "row_block"])
+def test_georef_cells_bit_equal_to_eager_chain(cuda, case):
+    """The small ISS030 frame: its upper rows are sky (rays that miss the
+    ellipsoid: NaN lat/lon/elevation, iy = ix = -1)."""
+    dyn, h, w = small_dyn(cuda)
+    mask, row0 = None, 0
+    if case == "masked":
+        mask = torch.zeros((h, w), dtype=torch.bool, device=cuda)
+        mask[::3, 5:70] = True
+    if case == "row_block":  # rows 37..76 of the frame, as a rank's block
+        h, row0 = 40, 37
+    iy, ix, out = assert_cells_equal_eager(GRID, dyn, h, w, mask, row0)
+    miss = torch.isnan(out["lat"])
+    assert miss.any() and (~miss).any()
+    assert bool((iy[miss] == -1).all()) and bool((ix[miss] == -1).all())
+    assert int((iy >= 0).sum()) > 1000
+    if mask is not None:
+        assert bool((iy[mask] == -1).all()) and bool((ix[mask] == -1).all())
+
+
+@pytest.mark.gpu
+def test_georef_cells_bit_equal_to_eager_chain_full_frame(cuda):
+    from auromat_tpu_torch.entry import frame_setup
+
+    grid, dyn, params = frame_setup(cuda)
+    iy, _, _ = assert_cells_equal_eager(grid, dyn, params.height,
+                                        params.width)
+    assert int((iy >= 0).sum()) == 7_032_896
+
+
+@pytest.mark.gpu
+def test_georef_cells_camera_inside_the_ellipsoid(cuda):
+    """A camera 6,420 km from the centre, inside the ellipsoid inflated by
+    110 km: every ray leaves by the far root."""
+    p = small_params()
+    r = float(np.linalg.norm(p.camera_pos))
+    dyn, h, w = _scaled_dyn(cuda, camera_pos=tuple(
+        c * 6420.0 / r for c in p.camera_pos))
+    grid = fixed_grid(2, -89.0, 89.0, -179.0, 179.0)
+    iy, _, out = assert_cells_equal_eager(grid, dyn, h, w)
+    assert not torch.isnan(out["lat"]).any()
+    assert int((iy >= 0).sum()) > h * w * 0.9  # but the poles and 180 deg
+    assert bool((out["elevation"] < 0).all())  # seen from inside
+
+
+@pytest.mark.gpu
+def test_georef_cells_far_edges_hit_exactly(cuda):
+    """A grid whose far edges (south, east) lie exactly on the coordinates
+    of one sample: the inclusive edge puts it in the last row and column,
+    as bin_indices does."""
+    from auromat_tpu_torch.ops.regrid import GridSpec
+
+    dyn, h, w = small_dyn(cuda)
+    _, _, out = georegrid_inputs(GRID, dyn, h, w)
+    lat = float(out["lat"][80, 64])
+    lon = float(out["lon"][80, 64])
+    assert lat == lat and lon == lon  # on the Earth
+    step = 0.5  # a power of two: every edge below is exact in float64
+    grid = GridSpec(n_lat=8, n_lon=8, lat0=lat + 8 * step - step / 2,
+                    lon0=lon - 8 * step + step / 2, lat_step=step,
+                    lon_step=step)
+    iy, ix, _ = assert_cells_equal_eager(grid, dyn, h, w)
+    assert (int(iy[80, 64]), int(ix[80, 64])) == (7, 7)
+
+
+@pytest.mark.gpu
+def test_georef_cells_launch_counts(cuda, frame):
+    """One launch a georegrid_mean, one a frame of a mosaic step, none for
+    an empty row block."""
+    import dataclasses
+
+    from auromat_tpu_torch.ops.georegrid import cell_planes, georef_cells
+    from auromat_tpu_torch.parallel import (make_grid_sharded_mosaic_step,
+                                            make_mesh)
+
+    dyn, h, w = small_dyn(cuda)
+    before = _kernels.GEOREF_CELLS.launches
+    georegrid_mean(GRID, dyn, torch.from_numpy(frame).to(cuda))
+    assert _kernels.GEOREF_CELLS.launches == before + 1
+    georef_cells(GRID, dyn, *cell_planes(0, w, cuda), row0=h)
+    assert _kernels.GEOREF_CELLS.launches == before + 1
+    p = small_params()
+    params = [dataclasses.replace(p, camera_pos=tuple(
+        c + 5.0 * i for c in p.camera_pos)) for i in range(3)]
+    imgs = np.random.default_rng(4).integers(0, 256, (3, h, w, 3), np.uint8)
+    step = make_grid_sharded_mosaic_step(
+        make_mesh(device=cuda), fixed_grid(2, -89.0, 89.0, -179.0, 179.0),
+        h, w, bin_method="pallas")
+    before = _kernels.GEOREF_CELLS.launches
+    step(DynGeorefParams.stack(params, device=cuda), imgs)
+    assert _kernels.GEOREF_CELLS.launches == before + 3
+
+
+@pytest.mark.gpu
+def test_georef_cells_refuses_bad_input(cuda):
+    from auromat_tpu_torch.ops.georegrid import cell_planes, georef_cells
+
+    dyn, h, w = small_dyn(cuda)
+    iy, ix, elev = cell_planes(h, w, cuda)
+    before = _kernels.GEOREF_CELLS.launches
+    with pytest.raises(ValueError, match="float32"):
+        georef_cells(GRID, dyn.to(cuda, torch.float64), iy, ix, elev)
+    with pytest.raises(ValueError, match="one frame"):  # a stacked burst
+        georef_cells(GRID, DynGeorefParams.stack([small_params()] * 2,
+                                                 device=cuda), iy, ix, elev)
+    with pytest.raises(ValueError, match="elev"):
+        georef_cells(GRID, dyn, iy, ix, elev[:, :-1])
+    with pytest.raises(ValueError, match="ix"):
+        georef_cells(GRID, dyn, iy, ix.float(), elev)
+    with pytest.raises(ValueError, match="mask"):
+        georef_cells(GRID, dyn, iy, ix, elev,
+                     mask=torch.zeros((h, w), dtype=torch.uint8, device=cuda))
+    assert _kernels.GEOREF_CELLS.launches == before
 
 
 def all_kernels(g, iy, ix, img, elev, data):
@@ -997,8 +1156,10 @@ def test_spans_on_the_card_time_the_stream_and_count_the_copies(cuda):
         r = resample(m, arcsec_per_px=100, device=cuda)
     got = rec.spans()
     names = [s.name for s in got]
+    # the fused frame's cells come from GEOREF_CELLS, launched inside
+    # georegrid.georef; the library's from the eager bin_indices
     assert names == [
-        "georegrid", "georegrid.georef", "georegrid.bin_indices", "k1.wait",
+        "georegrid", "georegrid.georef", "k1.wait",
         "create_mapping", "create_mapping.to_host", "create_mapping.masks",
         "resample", "resample.grid", "resample.prepare", "resample.to_device",
         "resample.bin", "georegrid", "georegrid.bin_indices", "k1.wait",

@@ -233,14 +233,14 @@ def pixel_grid(h, w, row0=0):
 @pytest.fixture
 def fed_jax_georef(monkeypatch):
     """The port's step georeferences with the JAX package's f32 chain."""
-    def georegrid_inputs_jax(grid, dyn, h, w, mask=None, row0=0):
-        out = jax_georef(dyn, *pixel_grid(h, w, row0))
+    def georef_cells_jax(grid, dyn, iy, ix, elev, row0=0):
+        out = jax_georef(dyn, *pixel_grid(*iy.shape, row0))
         flat, valid = bin_indices(grid, out["lat"], out["lon"])
-        iy = torch.where(valid, flat // grid.n_lon, -1).to(torch.int32)
-        ix = torch.where(valid, flat % grid.n_lon, -1).to(torch.int32)
-        return iy, ix, out
+        iy.copy_(torch.where(valid, flat // grid.n_lon, -1))
+        ix.copy_(torch.where(valid, flat % grid.n_lon, -1))
+        elev.copy_(out["elevation"])
 
-    monkeypatch.setattr(sharding, "georegrid_inputs", georegrid_inputs_jax)
+    monkeypatch.setattr(sharding, "georef_cells", georef_cells_jax)
     monkeypatch.setattr(sharding, "georef_latlon_dyn",
                         lambda d, px, py, dtype, with_elevation:
                         jax_georef(d, px, py, with_elevation))
