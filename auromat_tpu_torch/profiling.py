@@ -15,7 +15,9 @@ A recorded span keeps its name, its start and end on
 ``time.perf_counter_ns``, the index of the span open when it opened (its
 parent) and a trace id, which a root span draws and its descendants
 share; ``nbytes`` counts the bytes a stage copies between host and
-device. A span opened with ``stream=<a CUDA device>`` also records a CUDA
+device, and ``counts`` holds the integer counts a stage adds to its span
+with :meth:`Span.count` (the work it found: pixels visited, borders
+traced). A span opened with ``stream=<a CUDA device>`` also records a CUDA
 event pair on that device's current stream: the stage's time on the
 stream, in-stage gaps included, read once the device has finished. Each
 recorded span enters ``torch.profiler.record_function`` under its name
@@ -53,6 +55,8 @@ class Span:
         where the span does not count them)
     :param device_ms: the stage's time on its CUDA stream (None without
         ``stream`` or off CUDA), set by :meth:`Window.spans`
+    :param counts: the integer counts the stage added (None where it added
+        none)
     """
 
     name: str
@@ -62,12 +66,23 @@ class Span:
     end_ns: int = 0
     nbytes: int | None = None
     device_ms: float | None = None
+    counts: dict | None = None
     events: tuple | None = dataclasses.field(default=None, repr=False)
 
     @property
     def ms(self):
         """Duration on the host's clock, ms."""
         return (self.end_ns - self.start_ns) / 1e6
+
+    def count(self, **counts):
+        """Add each integer of ``counts`` to the span's count of that name.
+        A stage reaches its span as ``with span(...) as s``, where ``s`` is
+        None while recording is off: it counts with ``if s is not None:
+        s.count(...)``, so that an off span stays free."""
+        if self.counts is None:
+            self.counts = {}
+        for k, v in counts.items():
+            self.counts[k] = self.counts.get(k, 0) + int(v)
 
 
 class Window:
@@ -102,25 +117,31 @@ class Window:
 
     def report(self):
         """One line a span name, most self time first: calls, self ms, and
-        where recorded, device ms and MB copied."""
+        where recorded, device ms, MB copied and the counts."""
         spans = self.spans()
         rows = {}
         for s in spans:
-            calls, dev, nbytes = rows.get(s.name, (0, None, None))
+            calls, dev, nbytes, counts = rows.get(s.name, (0, None, None, None))
             if s.device_ms is not None:
                 dev = (dev or 0.0) + s.device_ms
             if s.nbytes is not None:
                 nbytes = (nbytes or 0) + s.nbytes
-            rows[s.name] = (calls + 1, dev, nbytes)
+            if s.counts is not None:
+                counts = dict(counts or {})
+                for k, v in s.counts.items():
+                    counts[k] = counts.get(k, 0) + v
+            rows[s.name] = (calls + 1, dev, nbytes, counts)
         lines = []
         by_self = sorted(self.self_times().items(), key=lambda kv: -kv[1])
         for name, ms in by_self:
-            calls, dev, nbytes = rows[name]
+            calls, dev, nbytes, counts = rows[name]
             line = f"{name}: {calls} calls, {ms:.3f} ms self"
             if dev is not None:
                 line += f", {dev:.3f} ms on the stream"
             if nbytes is not None:
                 line += f", {nbytes / 1e6:.3f} MB copied"
+            if counts is not None:
+                line += ", " + ", ".join(f"{k} {v}" for k, v in counts.items())
             lines.append(line)
         return "\n".join(lines)
 
@@ -203,8 +224,9 @@ def span(name, *, stream=False, nbytes=None):
     """A context manager around one stage of the program, named ``name``.
 
     Off (no ``torch.profiler`` session, no :func:`recording` block) it is
-    one shared no-op: no allocation, no clock read. On, it records a
-    :class:`Span` in the current window.
+    one shared no-op: no allocation, no clock read, and ``with`` gives
+    None. On, it records a :class:`Span` in the current window, which
+    ``with`` gives the stage (to add counts to).
 
     :param stream: False, or the device the stage's work runs on: on a
         CUDA device the span times the stage on that device's current

@@ -65,6 +65,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from auromat_tpu_torch.profiling import span
 from auromat_tpu_torch.solving.noise import estimate_noise_level
 from auromat_tpu_torch.utils import (_contour_area, _external_borders,
                                      bounding_rect, contour_approx_simple,
@@ -947,21 +948,29 @@ def _load_rgb(image):
     return image
 
 
-def _dark_area_mask(imgray, blacken_lower_part):
+def _dark_area_mask(imgray, blacken_lower_part, stage=None):
     """Step 1 of ``mask_starfield`` on a uint8 gray tensor: the dark-area
     candidate mask (bool tensor), raising the threshold while the
     starfield area stays implausibly small (reference masking.py:265-289);
-    returns (mask, first spike of the last histogram)."""
+    returns (mask, first spike of the last histogram). ``stage``, a
+    recorded ``profiling.Span`` if given, counts the ``binarizations`` and
+    the outer ``borders`` traced (on the card every external contour's, on
+    the CPU those ``_big_contours`` follows)."""
     fudge = 20
     while True:
         binary, _, _, first_spike = _binarize(imgray, fudge, 150)
         if imgray.device.type == "cpu":
             contours, areas, is_big = _big_contours(binary.numpy())
+            traced = len(contours)
             mask = _contour_mask(tuple(imgray.shape), contours, areas, is_big,
                                  blacken_lower_part, "cpu")
         else:
-            mask = _label_mask(tuple(imgray.shape), external_contours(binary),
-                               blacken_lower_part)
+            contours = external_contours(binary)
+            traced = len(contours[0])
+            mask = _label_mask(tuple(imgray.shape), contours, blacken_lower_part)
+            del contours
+        if stage is not None:
+            stage.count(binarizations=1, borders=traced)
         if mask.float().mean().item() >= 0.1 or fudge > 100:
             return mask, first_spike
         fudge += 20
@@ -978,6 +987,15 @@ def mask_starfield(image, channel=None, blacken_lower_part=True,
                    ignore_very_dark=True, device="cuda"):
     """Automatically mask the star-sky region of an image.
 
+    Its stages are ``profiling`` spans under ``masking``: ``to_device``
+    (the frame read and copied up, ``nbytes``), ``dark_area`` (the gray
+    and step 1; counts ``binarizations`` and ``borders`` traced),
+    ``lines`` (step 2a; counts the Hough trajectory's ``voters``,
+    ``triggers``, ``clear_steps`` and ``lines``), ``blocks`` (steps 2b and
+    3), each timed on the stream too, then ``sigma`` (the rectangle and
+    the noise estimate, in float64 on ``device``) and ``to_host`` (the
+    mask, ``nbytes``).
+
     :param image: path or (h, w, 3) RGB uint8 array
     :param channel: 'R', 'G', 'B' or None (grayscale combine)
     :param device: where the pixel stages and the Hough transform run
@@ -987,48 +1005,65 @@ def mask_starfield(image, channel=None, blacken_lower_part=True,
     from auromat_tpu_torch.ops.georef import compute_device
 
     device = compute_device(device)
-    im = torch.from_numpy(np.array(_load_rgb(image))).to(device)
-    imgray = _gray(im, channel)
-    del im
-    shape = tuple(imgray.shape)
-    block = _block_shape(shape)
+    cuda = device.type == "cuda"
+    with span("masking"):
+        with span("masking.to_device") as stage:
+            # the caller's array is read, never written: copied on the host
+            # only where torch cannot take it as it is
+            rgb = np.ascontiguousarray(_load_rgb(image))
+            if not rgb.flags.writeable:
+                rgb = rgb.copy()
+            im = torch.from_numpy(rgb).to(device)
+            if stage is not None:
+                stage.nbytes = rgb.nbytes if cuda else 0
+            del rgb
+        with span("masking.dark_area", stream=device) as stage:
+            imgray = _gray(im, channel)
+            del im
+            shape = tuple(imgray.shape)
+            block = _block_shape(shape)
+            mask, first_spike = _dark_area_mask(imgray, blacken_lower_part, stage)
 
-    mask, first_spike = _dark_area_mask(imgray, blacken_lower_part)
-    imgray = imgray * mask
+        # step 2a: Hough lines over a masked adaptive threshold
+        with span("masking.lines", stream=device) as stage:
+            imgray = imgray * mask
+            binary = _line_candidates(imgray, mask)
+            counts = {}
+            lines = hough_lines_p(binary, 1, math.pi / 180, 200, 100, 4, counts)
+            del binary
+            if stage is not None:
+                stage.count(**counts)
+            if len(lines):
+                drawn = _draw_lines(shape, lines, device)
+                _clear_blocks(mask, _blocks_any(drawn, block), block)
 
-    # step 2a: Hough lines over a masked adaptive threshold
-    binary = _line_candidates(imgray, mask)
-    lines = hough_lines_p(binary, 1, math.pi / 180, 200, 100, 4)
-    del binary
-    if len(lines):
-        drawn = _draw_lines(shape, lines, device)
-        _clear_blocks(mask, _blocks_any(drawn, block), block)
+        with span("masking.blocks", stream=device):
+            # step 2b: mask blocks that are essentially pure black
+            if ignore_very_dark:
+                cutoff = _box_blur(imgray, 3)
+                cutoff_threshold = max(30, first_spike + 20)
+                _clear_blocks(mask, ~_blocks_any(cutoff >= cutoff_threshold,
+                                                 block), block)
 
-    # step 2b: mask blocks that are essentially pure black
-    if ignore_very_dark:
-        cutoff = _box_blur(imgray, 3)
-        cutoff_threshold = max(30, first_spike + 20)
-        _clear_blocks(mask, ~_blocks_any(cutoff >= cutoff_threshold, block),
-                      block)
+            # step 3: drop starfield blocks with no starfield neighbours
+            is_star = ~_blocks_any(~mask, block)
+            s = torch.nn.functional.pad(is_star.to(torch.int32), (1, 1, 1, 1))
+            nby, nbx = is_star.shape
+            neighbours = sum(s[dy:dy + nby, dx:dx + nbx] for dy in range(3)
+                             for dx in range(3)) - is_star.to(torch.int32)
+            _clear_blocks(mask, is_star & (neighbours == 0), block)
 
-    # step 3: drop starfield blocks with no starfield neighbours
-    def star_blocks():
-        return ~_blocks_any(~mask, block)
-
-    is_star = star_blocks()
-    s = torch.nn.functional.pad(is_star.to(torch.int32), (1, 1, 1, 1))
-    nby, nbx = is_star.shape
-    neighbours = sum(s[dy:dy + nby, dx:dx + nbx] for dy in range(3)
-                     for dx in range(3)) - is_star.to(torch.int32)
-    _clear_blocks(mask, is_star & (neighbours == 0), block)
-
-    # noise sigma from the largest remaining starfield rectangle
-    is_star = star_blocks().cpu().numpy()
-    bh, bw = block
-    if is_star.any():
-        (ry, rx), (rh, rw) = _max_size_rectangle(is_star)
-        rect = imgray[ry * bh : (ry + rh) * bh, rx * bw : (rx + rw) * bw]
-        sigma = _scale_sigma(estimate_noise_level(rect.cpu().numpy()))
-    else:
-        sigma = _scale_sigma(estimate_noise_level(imgray.cpu().numpy()))
-    return mask.cpu().numpy(), sigma
+        # noise sigma from the largest remaining starfield rectangle,
+        # estimated where the gray is
+        with span("masking.sigma"):
+            is_star = (~_blocks_any(~mask, block)).cpu().numpy()
+            bh, bw = block
+            if is_star.any():
+                (ry, rx), (rh, rw) = _max_size_rectangle(is_star)
+                rect = imgray[ry * bh : (ry + rh) * bh, rx * bw : (rx + rw) * bw]
+                sigma = _scale_sigma(estimate_noise_level(rect))
+            else:
+                sigma = _scale_sigma(estimate_noise_level(imgray))
+        with span("masking.to_host", nbytes=mask.numel() if cuda else 0):
+            mask = mask.cpu().numpy()
+    return mask, sigma

@@ -1,0 +1,9 @@
+"""CONTOUR_TRACE's (ops/csrc/contour_trace.cu) least time over its profiled
+time in the traced window, %: benchmark/roofline_masking.py reckons the
+least time from the frames' shapes and the plain reference's counts."""
+
+from benchmark.roofline_masking import share_pct
+
+
+def read(run):
+    return share_pct(run, "contour_trace")

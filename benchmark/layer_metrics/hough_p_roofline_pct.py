@@ -1,0 +1,9 @@
+"""HOUGH_P's (ops/csrc/hough_p.cu) least time over its profiled time in the
+traced window, %: benchmark/roofline_masking.py reckons the least time from
+the frames' shapes and the plain reference's counts."""
+
+from benchmark.roofline_masking import share_pct
+
+
+def read(run):
+    return share_pct(run, "hough_p")

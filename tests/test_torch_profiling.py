@@ -101,6 +101,55 @@ def test_span_off_is_one_shared_no_op():
     assert spans() == []
 
 
+def _counted(n):
+    """A stage that counts what it did on its span, as the program's do."""
+    with span("counted") as s:
+        if s is not None:
+            s.count(items=n, calls=1)
+
+
+def test_span_counts_are_recorded_on_and_cost_nothing_off():
+    assert not torch.autograd.profiler._is_profiler_enabled
+    with recording() as rec:
+        _counted(3)
+        _counted(4)
+        with span("plain"):
+            pass
+    got = rec.spans()
+    assert [(s.name, s.counts) for s in got] == [
+        ("counted", {"items": 3, "calls": 1}), ("counted", {"items": 4, "calls": 1}),
+        ("plain", None)]
+    report = rec.report()
+    assert "counted: 2 calls" in report and "items 7, calls 2" in report
+    plain = next(line for line in report.splitlines() if line.startswith("plain:"))
+    assert plain.startswith("plain: 1 calls") and plain.endswith(" ms self")
+
+    # off: the one shared no-op, which gives the stage None to count on
+    assert span("counted") is span("plain")
+    with span("counted") as s:
+        assert s is None
+    _counted(5)
+    assert spans() == got  # the last window, untouched
+
+    def loop_s(counting, n=100_000):
+        """The least thread CPU time of five loops, a call."""
+        best = float("inf")
+        for _ in range(5):
+            t0 = time.thread_time()
+            if counting:
+                for _ in range(n):
+                    _counted(5)
+            else:
+                for _ in range(n):
+                    pass
+            best = min(best, time.thread_time() - t0)
+        return best / n
+
+    cost = loop_s(True) - loop_s(False)
+    assert cost < 1e-6, f"{cost * 1e9:.0f} ns an off span that counts"
+    assert spans() == got
+
+
 def test_spans_under_the_profiler_reach_its_timeline():
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         _outer_inner()
