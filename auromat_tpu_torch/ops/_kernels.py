@@ -126,6 +126,13 @@ _K1_ARGS = [_P, _P, _P, _P, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
 GEOREGRID_BIN = CudaKernel("georegrid_bin.cu", "georegrid_bin_launch", _K1_ARGS)
 GEOREGRID_BIN_I8 = CudaKernel("georegrid_bin.cu", "georegrid_bin_i8_launch",
                               _K1_ARGS)
+# K1_MEAN (ops/georegrid.py::mean_int_sums, the sequence mosaic's finish):
+# K1's float32 epilogue, the mean and the largest count in one pass over
+# the int64 sums; XLA compiles the JAX package's finish, so it replaces no
+# TPU kernel
+K1_MEAN = CudaKernel("georegrid_bin.cu", "georegrid_mean_launch",
+                     [_P, _P, ctypes.c_longlong, ctypes.c_double, _P, _P, _P,
+                      _P])
 
 # GEOREF_CELLS (ops/georegrid.py::georef_cells): the float32 georeference
 # chain and its cells in one pass, bit-equal to the eager chain on the card;

@@ -32,7 +32,9 @@ frames stacked along the rows (B*h, w), as the mosaic step
 plain version checks the counts after binning, the kernel raises a status
 word that the wrapper reads once (one small copy, one host sync a call).
 :func:`bin_rgbelev_int` and :func:`bin_rgbelev_plain_int` return the
-integer sums themselves, for callers that add them across calls.
+integer sums themselves, for callers that add them across calls;
+:func:`mean_int_sums` (K1_MEAN, in the same source) finishes such sums on
+the card in one pass: the float32 count, the means and the largest count.
 
 Reference: auromat/mapping/astrometry.py:49-212 + auromat/resample.py:
 328-351 (the lazy-property pyramid + histogram2d rebin, fused).
@@ -46,7 +48,7 @@ import torch
 
 from auromat_tpu_torch.constants import WGS84_A, WGS84_B
 from auromat_tpu_torch.ops._kernels import (GEOREF_CELLS, GEOREGRID_BIN,
-                                            GEOREGRID_BIN_I8)
+                                            GEOREGRID_BIN_I8, K1_MEAN)
 from auromat_tpu_torch.ops.georef import DynGeorefParams, georef_latlon_dyn
 from auromat_tpu_torch.ops.regrid import GridSpec, bin_indices, finalize_mean
 from auromat_tpu_torch.profiling import span
@@ -120,6 +122,45 @@ def finish_int_sums(grid, cnt_rgb, elev_fixed, compute):
     sums = torch.cat([cnt_rgb[:, 1:].float(), el.float()[:, None]], dim=1)
     return (count.float().reshape(grid.n_lat, grid.n_lon),
             sums.reshape(grid.n_lat, grid.n_lon, 4))
+
+
+def mean_int_sums(grid, cnt_rgb, elev_fixed):
+    """K1_MEAN: :func:`finish_int_sums` (K1's scale) and
+    :func:`~auromat_tpu_torch.ops.regrid.finalize_mean` of CUDA tensors in
+    one launch on the current stream, bit-equal to that pair, which is its
+    plain twin on any device.
+
+    :param cnt_rgb: (n_cells, 4) int64 [count, R, G, B], contiguous and
+        16-byte aligned
+    :param elev_fixed: (n_cells,) int64 sum of the fixed-point elevations
+        (+ 90 deg) at :data:`ELEV_SCALE`
+    :returns: count (n_lat, n_lon) and means (n_lat, n_lon, 4) [R, G, B,
+        elevation], float32, NaN where the count is 0; and the largest
+        count, a (1,) int64 tensor on the device for the caller to read
+    """
+    n_cells, dev = grid.n_lat * grid.n_lon, cnt_rgb.device
+    if dev.type != "cuda":
+        raise ValueError(f"K1_MEAN runs on cuda, not {dev}; its plain twin "
+                         "is finish_int_sums + finalize_mean")
+    for name, t, shape in (("cnt_rgb", cnt_rgb, (n_cells, 4)),
+                           ("elev_fixed", elev_fixed, (n_cells,))):
+        if t.dtype != torch.int64 or tuple(t.shape) != shape or \
+                t.device != dev or not t.is_contiguous():
+            raise ValueError(f"{name}: want contiguous int64 {shape} on "
+                             f"{dev}, got {t.dtype} {tuple(t.shape)} on "
+                             f"{t.device}")
+    if cnt_rgb.data_ptr() % 16:
+        raise ValueError("cnt_rgb must be 16-byte aligned for K1_MEAN")
+    count = torch.empty(n_cells, dtype=torch.float32, device=dev)
+    means = torch.empty(n_cells, 4, dtype=torch.float32, device=dev)
+    most = torch.zeros(1, dtype=torch.int64, device=dev)
+    ptr = lambda t: ctypes.c_void_p(t.data_ptr())
+    with torch.cuda.device(dev):  # the launcher reads the current device
+        K1_MEAN(ptr(cnt_rgb), ptr(elev_fixed), n_cells, 1.0 / ELEV_SCALE,
+                ptr(count), ptr(means), ptr(most),
+                ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+    return (count.reshape(grid.n_lat, grid.n_lon),
+            means.reshape(grid.n_lat, grid.n_lon, 4), most)
 
 
 def bin_rgbelev_plain(grid: GridSpec, iy, ix, img_chw, elev,

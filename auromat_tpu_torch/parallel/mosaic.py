@@ -7,7 +7,8 @@ make_grid_sharded_mosaic_step`), the partial sums of the bursts add up with
 the row-band sharding intact, and the mean is taken once at the end. With
 ``bin_method='pallas'`` the partials are K1's integer sums, so a sequence
 of any number of bursts equals one step over all its frames bit for bit,
-elevation included.
+elevation included; on the card one launch of K1_MEAN finishes them
+(``GridShardedStep.finish``).
 
 Remainder bursts are padded to the batch size with
 :func:`null_georef_params` frames, which contribute exactly nothing, so
@@ -20,7 +21,7 @@ import numpy as np
 import torch
 
 from auromat_tpu_torch.ops.georef import DynGeorefParams, GeorefParams
-from auromat_tpu_torch.ops.regrid import GridSpec, finalize_mean
+from auromat_tpu_torch.ops.regrid import GridSpec
 from auromat_tpu_torch.parallel.sharding import (Mesh,
                                                  make_grid_sharded_mosaic_step)
 from auromat_tpu_torch.profiling import span
@@ -53,7 +54,7 @@ def _step_for(mesh, grid, h, w, dtype, bin_method, chunk_rows, min_elevation):
     mosaic_sequence calls; bounded, least recently used first out."""
     return make_grid_sharded_mosaic_step(
         mesh, grid, h, w, channels=3, dtype=dtype, bin_method=bin_method,
-        chunk_rows=chunk_rows, finalize=False, min_elevation=min_elevation)
+        chunk_rows=chunk_rows, min_elevation=min_elevation)
 
 
 def mosaic_sequence(mesh: Mesh, grid: GridSpec, bursts, batch=8,
@@ -109,6 +110,9 @@ def mosaic_sequence(mesh: Mesh, grid: GridSpec, bursts, batch=8,
 
         if total is None:
             raise ValueError("empty sequence: no frames to mosaic")
-        with span("mosaic.finish", stream=mesh.device):
-            count, sums = step.finish(total)
-            return count, finalize_mean(count, sums)
+        with span("mosaic.finish", stream=mesh.device) as stage:
+            counters = {}
+            out = step.finish(total, counters)
+            if stage is not None:
+                stage.count(**counters)
+            return out

@@ -32,7 +32,7 @@ import torch.distributed as dist
 from auromat_tpu_torch.ops.georef import compute_device, georef_latlon_dyn
 from auromat_tpu_torch.ops.georegrid import (bin_rgbelev_int, finish_int_sums,
                                              bin_rgbelev_plain_int,
-                                             georef_cells)
+                                             georef_cells, mean_int_sums)
 from auromat_tpu_torch.ops.regrid import (_BIN_METHODS, GridSpec, bin_indices,
                                           bin_partial, finalize_mean, round_up)
 from auromat_tpu_torch.profiling import span
@@ -345,24 +345,50 @@ class GridShardedStep:
                 self.mesh, acc.reshape(n_dev * cr, n_lon, 1 + self.n_ch)))
         return (torch.cat(parts)[:band],)
 
-    def finish(self, partial):
+    def finish(self, partial, counters=None):
         """(count, means) — or (count, sums) without ``finalize`` — of
         this rank's band, in float32 for the K1 branches and in ``dtype``
-        for the others; rows >= grid.n_lat are padding."""
+        for the others; rows >= grid.n_lat are padding.
+
+        With ``finalize``, K1's own partials (``bin_method='pallas'``) on
+        the card are finished by K1_MEAN
+        (:func:`~auromat_tpu_torch.ops.georegrid.mean_int_sums`), one pass;
+        every other route by its plain twin, ``finish_int_sums`` and
+        ``finalize_mean``. Either way one read of the largest count refuses
+        an int64 elevation sum that could overflow.
+
+        :param counters: a dict, if given, gets ``mean_kernel`` (K1_MEAN
+            launches) and ``cells`` (the cells finished)
+        """
         band_grid = dataclasses.replace(self.grid, n_lat=self.band)
-        if self.bin_method in _K1_BINNERS:
+        k1_mean = (self.finalize and self.bin_method == "pallas"
+                   and partial[0].is_cuda)
+        if k1_mean:
+            count, means, most = mean_int_sums(band_grid, *partial)
+            _refuse_elev_overflow(most)
+        elif self.bin_method in _K1_BINNERS:
             cnt_rgb, elev_fixed = partial
-            with span("mosaic.finish.wait"):
-                most = int(cnt_rgb[:, 0].max().item())
-            if most > _ELEV_INT64_MAX_COUNT:
-                raise ValueError(f"a cell holds {most} samples: its int64 "
-                                 "elevation sum could overflow")
+            _refuse_elev_overflow(cnt_rgb[:, 0].max())
             count, sums = finish_int_sums(band_grid, cnt_rgb, elev_fixed, "bf16")
         else:
             (acc,) = partial
             count = acc[..., 0].to(self.dtype)
             sums = acc[..., 1:].to(self.dtype)
+        if counters is not None:
+            counters.update(mean_kernel=int(k1_mean), cells=count.numel())
+        if k1_mean:
+            return count, means
         return count, (finalize_mean(count, sums) if self.finalize else sums)
+
+
+def _refuse_elev_overflow(most):
+    """Read the largest count, an int64 tensor of one element, and raise if
+    a cell's int64 elevation sum could overflow."""
+    with span("mosaic.finish.wait"):
+        most = int(most.item())
+    if most > _ELEV_INT64_MAX_COUNT:
+        raise ValueError(f"a cell holds {most} samples: its int64 "
+                         "elevation sum could overflow")
 
 
 def make_grid_sharded_mosaic_step(mesh: Mesh, grid: GridSpec, height, width,
@@ -382,9 +408,10 @@ def make_grid_sharded_mosaic_step(mesh: Mesh, grid: GridSpec, height, width,
     kernel on a GPU, its plain version on the CPU) straight into the
     band-padded grid, and reduce-scatters the int64 sums once; the float32
     epilogue runs after the reduction, so the result does not depend on
-    the number of ranks. ``'pallas_plain'`` is the same with K1's plain
-    version on any device (the kernel's reference). Both need
-    channels=3 + with_elevation and float32.
+    the number of ranks; on the card it is K1_MEAN, one pass that also
+    reduces the largest count. ``'pallas_plain'`` is the same with K1's
+    plain version and the eager finish on any device (the kernels'
+    reference). Both need channels=3 + with_elevation and float32.
 
     Any other ``bin_method`` (a ``ops.regrid._BIN_METHODS`` name) bins in
     float64 with ``index_add_`` in row chunks of ``chunk_rows`` rows per

@@ -34,6 +34,13 @@ only the port is installed:
 * The grid-sharded mosaic step on the card: K1 == its plain version bit
   for bit, one launch per burst, and the CPU's result within the bounds
   above.
+* K1_MEAN, the mosaic's finish, against its plain twin
+  (``finish_int_sums`` + ``finalize_mean``) and a numpy finish: count and
+  means bit-equal, NaN where empty, on random sums, counts past 2^24 and
+  elevation sums at both ends of the fixed-point range; one launch a
+  ``mosaic_sequence`` (counted on its ``mosaic.finish`` span), bit-equal
+  to the plain route and to one step; its refusals, and a count past the
+  int64 elevation bound raised from the step's finish.
 * The tile histograms' paths: seeded random indices over the whole grid
   (every tile's cell box overflows shared memory: the warp-aggregated
   fallback), ragged planes (w not a multiple of 4 or of the 128-column
@@ -424,6 +431,181 @@ def test_grid_sharded_step_on_cuda(cuda):
     assert np.abs(d).max() <= 1 and (d != 0).mean() < 1e-2
     ok = ((d == 0) & (c > 0))[..., None] & ~np.isnan(cm)
     assert_allclose(m[ok], cm[ok], rtol=1e-3, atol=0.05)
+
+
+# -- K1_MEAN: the mosaic's finish ---------------------------------------------
+
+FINISH_CASES = ("random", "past_2_24", "elev_ends")
+
+
+def planted_int_sums(n_cells, case, seed=5):
+    """(cnt_rgb (n_cells, 4), elev_fixed (n_cells,)) int64 CPU tensors as a
+    mosaic's steps add them: 'random' counts below 400 with ~30% empty
+    cells; 'past_2_24' counts from 2^24 - 64 up to the int64 elevation
+    bound (their float32 rounds), every seventh empty; 'elev_ends' every
+    sample of a cell at -90 or at +90 deg (elevation sums 0 and count *
+    180 * 2^30, near 2^63 at the bound), every fifth cell empty. R, G, B
+    sums are at most 255 * count."""
+    from auromat_tpu_torch.parallel.sharding import _ELEV_INT64_MAX_COUNT
+
+    rng = np.random.default_rng(seed)
+    cells = np.arange(n_cells)
+    if case == "random":
+        count = rng.integers(0, 400, n_cells)
+        count[rng.random(n_cells) < 0.3] = 0
+    elif case == "past_2_24":
+        count = rng.integers(2 ** 24 - 64, _ELEV_INT64_MAX_COUNT + 1, n_cells)
+        count[cells % 7 == 0] = 0
+    else:
+        count = rng.integers(1, _ELEV_INT64_MAX_COUNT + 1, n_cells)
+        count[cells % 5 == 0] = 0
+        count[1] = _ELEV_INT64_MAX_COUNT
+    rgb = np.floor(count[:, None] * rng.random((n_cells, 3)) * 255)
+    if case == "elev_ends":
+        term = np.where(cells % 2 == 1, 180 * 2 ** 30, 0)
+    else:  # one sample's (e + 90) * 2^30, times the count
+        term = np.round((rng.uniform(-90, 90, n_cells) + 90) * 2 ** 30)
+    cnt_rgb = np.concatenate([count[:, None], rgb.astype(np.int64)], axis=1)
+    elev_fixed = term.astype(np.int64) * count
+    return torch.from_numpy(cnt_rgb), torch.from_numpy(elev_fixed)
+
+
+def numpy_finish(cnt_rgb, elev_fixed, finalize):
+    """K1's finish of numpy int64 sums in numpy, from the definitions:
+    count and R, G, B to float32, the elevation sum as fl32(fl64(e) *
+    2^-30 - 90 * fl64(count)); with ``finalize`` each sum over the float32
+    count, NaN where the count is 0. Flat (n_cells,) and (n_cells, 4)."""
+    count = cnt_rgb[:, 0].astype(np.float32)
+    el = elev_fixed.astype(np.float64) * 2.0 ** -30 \
+        - 90.0 * cnt_rgb[:, 0].astype(np.float64)
+    sums = np.concatenate([cnt_rgb[:, 1:].astype(np.float32),
+                           el.astype(np.float32)[:, None]], axis=1)
+    if finalize:
+        with np.errstate(divide="ignore", invalid="ignore"):
+            sums = np.where(count[:, None] > 0, sums / count[:, None],
+                            np.float32(np.nan))
+    return count, sums
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", FINISH_CASES)
+def test_k1_mean_bit_equal_to_plain_finish(cuda, case):
+    """K1_MEAN against its plain twin, finish_int_sums + finalize_mean, on
+    the same CUDA sums (1.6 M cells, several strides of the resident grid):
+    count and means bit for bit, NaN in the same places, and the largest
+    count; both also equal the numpy finish."""
+    from auromat_tpu_torch.ops.georegrid import finish_int_sums, mean_int_sums
+    from auromat_tpu_torch.ops.regrid import finalize_mean
+
+    grid = fixed_grid(5, -89.0, 89.0, -179.0, 179.0)  # 891 x 1791 cells
+    cnt_cpu, el_cpu = planted_int_sums(grid.n_lat * grid.n_lon, case)
+    cnt, el = cnt_cpu.to(cuda), el_cpu.to(cuda)
+    before = _kernels.K1_MEAN.launches
+    count, means, most = mean_int_sums(grid, cnt, el)
+    assert _kernels.K1_MEAN.launches == before + 1
+    pc, ps = finish_int_sums(grid, cnt, el, "bf16")
+    pm = finalize_mean(pc, ps)
+    torch.cuda.synchronize()
+    assert count.shape == pc.shape and means.shape == pm.shape
+    assert_bits_equal(count, pc, "count")
+    assert_bits_equal(means, pm, "means")
+    assert int(most.item()) == int(cnt_cpu[:, 0].max())
+    nc, nm = numpy_finish(cnt_cpu.numpy(), el_cpu.numpy(), True)
+    assert_bits_equal(count.cpu().reshape(-1), torch.from_numpy(nc), "count")
+    assert_bits_equal(means.cpu().reshape(-1, 4), torch.from_numpy(nm),
+                      "means")
+    assert torch.isnan(means[count == 0]).all()
+    assert not torch.isnan(means[count > 0]).any()
+
+
+@pytest.mark.gpu
+def test_k1_mean_refuses_bad_input(cuda):
+    from auromat_tpu_torch.ops.georegrid import mean_int_sums
+
+    grid = fixed_grid(2, 30.0, 35.0, -140.0, -130.0)
+    n = grid.n_lat * grid.n_lon
+    cnt = torch.zeros(n + 1, 4, dtype=torch.int64, device=cuda)
+    el = torch.zeros(n, dtype=torch.int64, device=cuda)
+    before = _kernels.K1_MEAN.launches
+    for bad in ((cnt[:n].cpu(), el.cpu()), (cnt[:n].float(), el),
+                (cnt[:n - 1], el), (cnt[:n, :3], el),
+                (cnt.view(-1)[1:1 + 4 * n].view(n, 4), el)):
+        with pytest.raises(ValueError):
+            mean_int_sums(grid, *bad)
+    assert _kernels.K1_MEAN.launches == before
+
+
+def _mosaic_bursts(cuda):
+    """Three jittered frames of the scaled calibration in bursts of 2 + 1,
+    their uint8 images, and the global 2 px/deg grid."""
+    import dataclasses
+
+    p = small_params()
+    params = [dataclasses.replace(p, camera_pos=tuple(
+        c + 5.0 * i for c in p.camera_pos)) for i in range(3)]
+    imgs = torch.from_numpy(np.random.default_rng(4).integers(
+        0, 256, (3, p.height, p.width, 3), np.uint8)).to(cuda)
+    grid = fixed_grid(2, -89.0, 89.0, -179.0, 179.0)
+    return params, imgs, grid, [(params[:2], imgs[:2]), (params[2:], imgs[2:])]
+
+
+@pytest.mark.gpu
+def test_mosaic_sequence_finishes_with_k1_mean(cuda):
+    """A mosaic_sequence on the card: one K1_MEAN launch, counted on its
+    mosaic.finish span, bit-equal to the plain route ('pallas_plain': K1's
+    plain version, finish_int_sums, finalize_mean) and to one step over
+    all frames."""
+    from auromat_tpu_torch.parallel import (make_grid_sharded_mosaic_step,
+                                            make_mesh, mosaic_sequence)
+    from auromat_tpu_torch.profiling import recording
+
+    params, imgs, grid, bursts = _mosaic_bursts(cuda)
+    mesh = make_mesh(device=cuda)
+    before = _kernels.K1_MEAN.launches
+    with recording() as rec:
+        c, m = mosaic_sequence(mesh, grid, bursts, batch=2)
+        torch.cuda.synchronize()
+    assert _kernels.K1_MEAN.launches == before + 1
+    (finish,) = [s for s in rec.spans() if s.name == "mosaic.finish"]
+    assert finish.counts == {"mean_kernel": 1, "cells": c.numel()}
+    assert finish.device_ms is not None and finish.device_ms > 0
+    assert c.sum() > 1000
+    pc, pm = mosaic_sequence(mesh, grid, bursts, batch=2,
+                             bin_method="pallas_plain")
+    assert _kernels.K1_MEAN.launches == before + 1
+    assert_bits_equal(c, pc, "count")
+    assert_bits_equal(m, pm, "means")
+    h, w = params[0].height, params[0].width
+    oc, om = make_grid_sharded_mosaic_step(mesh, grid, h, w,
+                                           bin_method="pallas")(
+        DynGeorefParams.stack(params, device=cuda), imgs)
+    assert _kernels.K1_MEAN.launches == before + 2
+    assert_bits_equal(c, oc, "count")
+    assert_bits_equal(m, om, "means")
+
+
+@pytest.mark.gpu
+def test_k1_mean_refuses_an_overflowing_count(cuda):
+    """A cell past the int64 elevation bound raises from the step's finish,
+    after K1_MEAN's one launch; at the bound it does not."""
+    from auromat_tpu_torch.parallel import (make_grid_sharded_mosaic_step,
+                                            make_mesh)
+    from auromat_tpu_torch.parallel.sharding import _ELEV_INT64_MAX_COUNT
+
+    grid = fixed_grid(2, -89.0, 89.0, -179.0, 179.0)
+    step = make_grid_sharded_mosaic_step(make_mesh(device=cuda), grid, 96,
+                                         128, bin_method="pallas")
+    n_cells = step.band * grid.n_lon
+    cnt = torch.zeros(n_cells, 4, dtype=torch.int64, device=cuda)
+    el = torch.zeros(n_cells, dtype=torch.int64, device=cuda)
+    cnt[n_cells // 3, 0] = _ELEV_INT64_MAX_COUNT + 1
+    before = _kernels.K1_MEAN.launches
+    with pytest.raises(ValueError, match="overflow"):
+        step.finish((cnt, el))
+    assert _kernels.K1_MEAN.launches == before + 1
+    cnt[n_cells // 3, 0] = _ELEV_INT64_MAX_COUNT
+    c, _ = step.finish((cnt, el))  # its float32 count rounds
+    assert c.max().item() == float(np.float32(_ELEV_INT64_MAX_COUNT))
 
 
 def assert_bits_equal(got, want, what):

@@ -5,6 +5,10 @@ frame bursts, against the JAX package on the CPU.
   equals the sum of its one-frame calls; a cell past the uint32 bound and
   a call of 2^32 samples still raise.
 * ``DynGeorefParams.stack`` / ``frame`` equal the per-frame calibration.
+* The step's finish of K1's int64 sums on the CPU, with and without
+  ``finalize``, equals a numpy finish bit for bit on random sums, counts
+  past 2^24 and elevation sums at both ends of the fixed-point range, and
+  refuses a count past the int64 elevation bound.
 * The grid-sharded step on a world of one against JAX
   ``make_grid_sharded_mosaic_step`` on a 1-device CPU mesh ('sorted', and
   'pallas' in interpret mode on a small grid), on a burst of the 128x96
@@ -58,6 +62,8 @@ from auromat_tpu_torch.parallel import (gather_bands,
 from auromat_tpu_torch.parallel import sharding
 from auromat_tpu_torch.parallel.sharding import Mesh
 from test_georegrid import small_params
+from test_torch_gpu import (FINISH_CASES, assert_bits_equal, numpy_finish,
+                            planted_int_sums)
 
 GLOBAL = (2, -89.0, 89.0, -179.0, 179.0)  # 2 px/deg global grid, 355 x 715
 REGION = (2, 30.0, 75.0, -140.0, -60.0)  # the small grid of the JAX tests
@@ -166,6 +172,36 @@ def test_k1_refuses_what_could_wrap():
         bin_rgbelev_from_indices(K1_GRID, big, big,
                                  torch.zeros(1, 1, 1).expand(3, 2 ** 16, 2 ** 16),
                                  torch.zeros(1, 1).expand(2 ** 16, 2 ** 16))
+
+
+# -- the finish --------------------------------------------------------------
+
+@pytest.mark.parametrize("finalize", [True, False])
+@pytest.mark.parametrize("case", FINISH_CASES)
+def test_k1_finish_on_the_cpu_as_before(case, finalize):
+    """The step's finish of K1's int64 sums on the CPU (the plain route:
+    finish_int_sums, then finalize_mean with ``finalize``) equals the numpy
+    finish bit for bit, counts its cells (no K1_MEAN launch), and refuses a
+    cell past the int64 elevation bound."""
+    grid = fixed_grid(*REGION)
+    step = make_grid_sharded_mosaic_step(make_mesh(device="cpu"), grid, 8, 8,
+                                         bin_method="pallas",
+                                         finalize=finalize)
+    n_cells = step.band * grid.n_lon
+    cnt_rgb, elev_fixed = planted_int_sums(n_cells, case)
+    counters = {}
+    count, out = step.finish((cnt_rgb, elev_fixed), counters)
+    assert counters == {"mean_kernel": 0, "cells": n_cells}
+    assert count.shape == (step.band, grid.n_lon)
+    assert out.shape == (step.band, grid.n_lon, 4)
+    want_c, want_out = numpy_finish(cnt_rgb.numpy(), elev_fixed.numpy(),
+                                    finalize)
+    assert_bits_equal(count.reshape(-1), torch.from_numpy(want_c), "count")
+    assert_bits_equal(out.reshape(-1, 4), torch.from_numpy(want_out), "out")
+    assert torch.isnan(out[count == 0]).all() == finalize
+    cnt_rgb[n_cells // 2, 0] = sharding._ELEV_INT64_MAX_COUNT + 1
+    with pytest.raises(ValueError, match="overflow"):
+        step.finish((cnt_rgb, elev_fixed))
 
 
 # -- calibration stacks ------------------------------------------------------
