@@ -8,8 +8,11 @@ shared header (``csrc/*.cuh``) and of the compiler flags, so an edited
 source or header is rebuilt and an unchanged one is loaded as it is.
 Nothing is built when this module is imported, and a failed build raises.
 
-Each :class:`CudaKernel` counts its launches in ``launches``: one per
-successful launch, so a run can show that its path went through the kernel.
+A :class:`CudaKernel` is the one place a launch is made: its wrappers pass
+tensors, and it packs their pointers, checks that they are contiguous and on
+one CUDA device, makes that device current and appends its current stream.
+Each counts its launches in ``launches``: one per successful launch, so a
+run can show that its path went through the kernel.
 Two handles may share a source (one library, built once): each entry point
 of the JAX package that reached a TPU kernel has its own handle, and so its
 own count.
@@ -21,6 +24,8 @@ import os
 import shutil
 import subprocess
 import threading
+
+import torch
 
 _CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 _BUILD = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
@@ -54,7 +59,7 @@ class CudaKernel:
     :param symbol: the C function; it launches on the stream it is given
         and returns ``cudaGetLastError()`` of the launch
     :param argtypes: ctypes argument types (``c_void_p`` for every pointer
-        and for the stream)
+        and for the stream, which comes last)
     """
 
     def __init__(self, source, symbol, argtypes):
@@ -107,11 +112,53 @@ class CudaKernel:
         os.replace(tmp, path)  # atomic: a concurrent loader sees all or none
         return path
 
+    def _c_args(self, args):
+        """The launcher's arguments from ``args``, and the first tensor
+        among them (None without one): a tensor becomes its data pointer;
+        None (a null pointer), ints and floats pass as they are. Raises
+        ValueError on a tensor that is not contiguous or not on the first
+        tensor's device."""
+        out, lead = [], None
+        for a in args:
+            if a is not None and not isinstance(a, (int, float)):
+                if lead is None:
+                    lead, dev = a, a.get_device()
+                elif a.get_device() != dev:
+                    raise self._refusal(args, a, f"is on {a.device}, the "
+                                        f"first tensor on {lead.device}")
+                if not a.is_contiguous():
+                    raise self._refusal(args, a, "must be contiguous")
+                a = a.data_ptr()
+            out.append(a)
+        return out, lead
+
+    def _refusal(self, args, tensor, what):
+        i = next(i for i, a in enumerate(args) if a is tensor)
+        return ValueError(f"{self.symbol}: argument {i} {what}")
+
     def __call__(self, *args):
-        """Launch; raises if the launch was refused."""
+        """Launch with the launcher's arguments in their C order, less the
+        stream (:meth:`_c_args`), on the tensors' CUDA device and its
+        current stream; raises ValueError before the launch on a tensor
+        that is not a contiguous CUDA tensor on that device, RuntimeError
+        if the launch was refused."""
+        c_args, lead = self._c_args(args)
+        if lead is None:
+            raise ValueError(f"{self.symbol} launches on CUDA tensors, got "
+                             "none")
+        if not lead.is_cuda:
+            raise self._refusal(args, lead, f"is on {lead.device}, not on a "
+                                "CUDA device")
         if self._fn is None:
             self.build()
-        rc = self._fn(*args)
+        dev = lead.get_device()
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        if dev == torch.cuda.current_device():
+            rc = self._fn(*c_args, stream)
+        else:  # a launch goes to the current device (K1's and K2's
+            # launchers also size their grids by it)
+            with torch.cuda.device(dev):
+                rc = self._fn(*c_args, stream)
         if rc != 0:
             raise RuntimeError(f"{self.symbol} launch failed: CUDA error {rc}")
         self.launches += 1

@@ -40,7 +40,6 @@ Reference: auromat/mapping/astrometry.py:49-212 + auromat/resample.py:
 328-351 (the lazy-property pyramid + histogram2d rebin, fused).
 """
 
-import ctypes
 import math
 
 import numpy as np
@@ -144,21 +143,16 @@ def mean_int_sums(grid, cnt_rgb, elev_fixed):
                          "is finish_int_sums + finalize_mean")
     for name, t, shape in (("cnt_rgb", cnt_rgb, (n_cells, 4)),
                            ("elev_fixed", elev_fixed, (n_cells,))):
-        if t.dtype != torch.int64 or tuple(t.shape) != shape or \
-                t.device != dev or not t.is_contiguous():
-            raise ValueError(f"{name}: want contiguous int64 {shape} on "
-                             f"{dev}, got {t.dtype} {tuple(t.shape)} on "
-                             f"{t.device}")
+        if t.dtype != torch.int64 or tuple(t.shape) != shape:
+            raise ValueError(f"{name}: want int64 {shape}, got {t.dtype} "
+                             f"{tuple(t.shape)}")
     if cnt_rgb.data_ptr() % 16:
         raise ValueError("cnt_rgb must be 16-byte aligned for K1_MEAN")
     count = torch.empty(n_cells, dtype=torch.float32, device=dev)
     means = torch.empty(n_cells, 4, dtype=torch.float32, device=dev)
     most = torch.zeros(1, dtype=torch.int64, device=dev)
-    ptr = lambda t: ctypes.c_void_p(t.data_ptr())
-    with torch.cuda.device(dev):  # the launcher reads the current device
-        K1_MEAN(ptr(cnt_rgb), ptr(elev_fixed), n_cells, 1.0 / ELEV_SCALE,
-                ptr(count), ptr(means), ptr(most),
-                ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+    K1_MEAN(cnt_rgb, elev_fixed, n_cells, 1.0 / ELEV_SCALE, count, means,
+            most)
     return (count.reshape(grid.n_lat, grid.n_lon),
             means.reshape(grid.n_lat, grid.n_lon, 4), most)
 
@@ -211,17 +205,9 @@ def launch_k1(grid, iy, ix, img_chw, elev, acc, elev_acc, status,
     ((n_cells,) float32) and ``sums`` ((n_cells, 4) float32) the same call
     runs the float32 epilogue. Shapes and dtypes are validated by the
     caller (:func:`_check_inputs`)."""
-    for name, t in (("iy", iy), ("ix", ix), ("img_chw", img_chw),
-                    ("elev", elev)):
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous for the K1 kernel")
-    ptr = lambda t: ctypes.c_void_p(None if t is None else t.data_ptr())
     n, w = iy.shape
-    with torch.cuda.device(iy.device):  # the launcher reads the current device
-        _KERNELS[compute](
-            ptr(iy), ptr(ix), ptr(img_chw), ptr(elev), n, w, grid.n_lat,
-            grid.n_lon, ptr(acc), ptr(elev_acc), ptr(status), ptr(count),
-            ptr(sums), ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+    _KERNELS[compute](iy, ix, img_chw, elev, n, w, grid.n_lat, grid.n_lon,
+                      acc, elev_acc, status, count, sums)
 
 
 def _bin_rgbelev_cuda(grid, iy, ix, img_chw, elev, compute, finish):
@@ -320,9 +306,8 @@ def bin_mean_rgbelev(grid: GridSpec, lats, lons, data):
     :returns: (count (n_lat, n_lon), means (n_lat, n_lon, 4))
     """
     with span("georegrid"):
-        with span("georegrid.bin_indices", stream=lats.device):
-            flat, valid = bin_indices(grid, lats, lons)
-            iy, ix = split_bin_indices(grid, flat, valid)
+        flat, valid = bin_indices(grid, lats, lons)
+        iy, ix = split_bin_indices(grid, flat, valid)
         data = data.to(torch.float32)
         img_chw = data[..., :3].permute(2, 0, 1).contiguous()
         count, sums = bin_rgbelev_from_indices(grid, iy, ix, img_chw,
@@ -363,12 +348,12 @@ def georegrid_inputs_plain(grid: GridSpec, dyn: DynGeorefParams, h, w,
     and :func:`split_bin_indices`. GEOREF_CELLS's plain twin."""
     dev = dyn.cd.device
     f32 = torch.float32
+    # one span over the chain and its cells, as over GEOREF_CELLS
     with span("georegrid.georef", stream=dev):
         px = torch.arange(w, dtype=f32, device=dev)[None, :].expand(h, w)
         py = torch.arange(row0, row0 + h, dtype=f32,
                           device=dev)[:, None].expand(h, w)
         out = georef_latlon_dyn(dyn, px, py, dtype=f32, with_elevation=True)
-    with span("georegrid.bin_indices", stream=dev):
         flat, valid = bin_indices(grid, out["lat"], out["lon"])
         if mask is not None:
             valid &= ~mask
@@ -440,8 +425,6 @@ def georef_cells(grid: GridSpec, dyn: DynGeorefParams, iy, ix, elev,
         mask = mask.contiguous()
     if h * w == 0:  # nothing to launch
         return
-    # the cells and the mask are the kernel's: no georegrid.bin_indices
-    # stage is left on this route
     with span("georegrid.georef", stream=dev):
         _launch_georef_cells(grid, dyn, iy, ix, elev, mask, row0, lat, lon)
 
@@ -449,20 +432,15 @@ def georef_cells(grid: GridSpec, dyn: DynGeorefParams, iy, ix, elev,
 def _launch_georef_cells(grid, dyn, iy, ix, elev, mask, row0, lat, lon):
     """One GEOREF_CELLS launch on the current stream; the arguments are
     validated by :func:`georef_cells`."""
-    ptr = lambda t: ctypes.c_void_p(None if t is None else t.data_ptr())
     fields = [getattr(dyn, name).contiguous() for name in _CELLS_DYN]
     h, w = iy.shape
     # bin_indices' edges; ATen divides a CUDA tensor by a Python float as
     # a product with the reciprocal, rounded in float64 on the host
     lat_hi_edge = grid.lat0 + grid.lat_step / 2
     lon_lo_edge = grid.lon0 - grid.lon_step / 2
-    with torch.cuda.device(iy.device):
-        GEOREF_CELLS(
-            *map(ptr, fields), ptr(mask), h, w, row0, grid.n_lat, grid.n_lon,
-            lat_hi_edge, 1.0 / grid.lat_step, lon_lo_edge,
-            1.0 / grid.lon_step, *_CHAIN_CONSTS, ptr(iy), ptr(ix), ptr(elev),
-            ptr(lat), ptr(lon),
-            ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+    GEOREF_CELLS(*fields, mask, h, w, row0, grid.n_lat, grid.n_lon,
+                 lat_hi_edge, 1.0 / grid.lat_step, lon_lo_edge,
+                 1.0 / grid.lon_step, *_CHAIN_CONSTS, iy, ix, elev, lat, lon)
 
 
 def georegrid_partial(grid: GridSpec, dyn: DynGeorefParams, img_chw,

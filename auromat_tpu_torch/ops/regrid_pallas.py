@@ -38,7 +38,6 @@ coordinate adds 0; :func:`bin_mean_pallas_taint` layers the reference's
 NaN-taint semantics on top.
 """
 
-import ctypes
 import struct
 
 import torch
@@ -179,17 +178,10 @@ def launch_k2(grid, iy, ix, data, mode, acc, status, count, sums,
     int64, zeroed) and the float32 ``count`` (n_cells,) and ``sums``
     (n_cells, n_ch). Layouts are validated by the caller
     (:func:`_check_layout`)."""
-    for name, t in (("iy", iy), ("ix", ix), ("data", data)):
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous for the K2 kernel")
-    ptr = lambda t: ctypes.c_void_p(t.data_ptr())
     h, w = iy.shape
-    with torch.cuda.device(iy.device):  # the launcher reads the current device
-        kernel(ptr(iy), ptr(ix), ptr(data), h, w, data.shape[-1],
-               grid.n_lat, grid.n_lon, MODES[mode],
-               ELEV_SHIFT if mode == "uint8" else FIXED_SHIFT, ptr(acc),
-               ptr(status), ptr(count), ptr(sums),
-               ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+    kernel(iy, ix, data, h, w, data.shape[-1], grid.n_lat, grid.n_lon,
+           MODES[mode], ELEV_SHIFT if mode == "uint8" else FIXED_SHIFT, acc,
+           status, count, sums)
 
 
 def _bin(grid, iy, ix, data, mode, kernel):

@@ -65,6 +65,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from auromat_tpu_torch.ops import _kernels
 from auromat_tpu_torch.profiling import span
 from auromat_tpu_torch.solving.noise import estimate_noise_level
 from auromat_tpu_torch.utils import (_contour_area, _external_borders,
@@ -329,17 +330,11 @@ def ccl(binary, connectivity, fg=True):
         raise ValueError(f"connectivity is {connectivity}, not 4 or 8")
     if binary.device.type == "cpu":
         return torch.from_numpy(_ccl_plain(binary.numpy(), connectivity, fg))
-    import ctypes
-
-    from auromat_tpu_torch.ops import _kernels
-
     binary = binary.contiguous()
     h, w = binary.shape
     labels = torch.empty((h, w), dtype=torch.int32, device=binary.device)
-    P = ctypes.c_void_p
     kernel = _kernels.CCL8 if connectivity == 8 else _kernels.CCL4
-    kernel(P(binary.data_ptr()), w, h, int(bool(fg)), P(labels.data_ptr()),
-           P(torch.cuda.current_stream(binary.device).cuda_stream))
+    kernel(binary, w, h, int(bool(fg)), labels)
     return labels
 
 
@@ -408,10 +403,6 @@ def _contour_trace_cuda(binary, roots, points=False, cycles=None):
     """``contour_trace`` on the card. ``cycles``, an int64 tensor of one
     entry a root if given, gets each thread's ``clock64()`` cycles of its
     walk (of the first launch)."""
-    import ctypes
-
-    from auromat_tpu_torch.ops import _kernels
-
     binary = binary.contiguous()
     dev = binary.device
     h, w = binary.shape
@@ -422,16 +413,10 @@ def _contour_trace_cuda(binary, roots, points=False, cycles=None):
     box = torch.empty((n, 4), dtype=torch.int32, device=dev)
     bits = torch.empty(((h + 7) // 8) * ((w + 7) // 8), dtype=torch.int64,
                        device=dev)  # the image as 8x8-pixel tiles
-    P = ctypes.c_void_p
-    stream = P(torch.cuda.current_stream(dev).cuda_stream)
 
     def launch(offsets, pts, clocks):
-        ptr = lambda t: P(None if t is None else t.data_ptr())
-        _kernels.CONTOUR_TRACE(P(binary.data_ptr()), w, h,
-                               P(roots.data_ptr()), n, P(area2.data_ptr()),
-                               P(box.data_ptr()), P(length.data_ptr()),
-                               P(count.data_ptr()), ptr(offsets), ptr(pts),
-                               ptr(clocks), P(bits.data_ptr()), stream)
+        _kernels.CONTOUR_TRACE(binary, w, h, roots, n, area2, box, length,
+                               count, offsets, pts, clocks, bits)
 
     launch(None, None, cycles)
     pts = None
@@ -810,17 +795,10 @@ def _hough_p_cuda(binary, rho, theta, threshold, line_length, line_gap,
 def _hough_order_cuda(count, device):
     """``_hough_order(count)`` drawn on the card by ``HOUGH_ORDER``: an
     int64 tensor on ``device``."""
-    import ctypes
-
-    from auromat_tpu_torch.ops import _kernels
-
     order = torch.empty(count, dtype=torch.int64, device=device)
     work = torch.empty(4 * count + 3 + (count + 1) // 1024, dtype=torch.int32,
                        device=device)
-    P = ctypes.c_void_p
-    _kernels.HOUGH_ORDER(count, P(order.data_ptr()), P(work.data_ptr()),
-                         work.numel(),
-                         P(torch.cuda.current_stream(device).cuda_stream))
+    _kernels.HOUGH_ORDER(count, order, work, work.numel())
     return order
 
 
@@ -831,8 +809,6 @@ def _hough_p_args(binary, rho, theta, threshold, line_length, line_gap):
     walks clear, the zeroed accumulator, the float32 trig table, the
     scratch list of a kept line's pixels, the outputs (lines, and the four
     counts as int64)."""
-    from auromat_tpu_torch.ops import _kernels
-
     h, w = binary.shape
     dev = binary.device
     numangle, numrho, cos_t, sin_t = _hough_setup((h, w), rho, theta)
@@ -870,19 +846,10 @@ def _hough_p_launch(a):
     accumulator are changed); returns (lines, counts) on the card, the
     counts in ``HOUGH_COUNTERS``' order (the fourth is the number of
     lines)."""
-    import ctypes
-
-    from auromat_tpu_torch.ops import _kernels
-
-    P = ctypes.c_void_p
-    _kernels.HOUGH_P(P(a["pts"].data_ptr()), a["count"],
-                     P(a["mask"].data_ptr()), a["width"], a["height"],
-                     P(a["acc"].data_ptr()), a["numangle"], a["numrho"],
-                     P(a["trig"].data_ptr()), a["threshold"],
-                     a["line_length"], a["line_gap"],
-                     P(a["lines"].data_ptr()), P(a["list"].data_ptr()),
-                     P(a["stats"].data_ptr()),
-                     P(torch.cuda.current_stream(a["mask"].device).cuda_stream))
+    _kernels.HOUGH_P(a["pts"], a["count"], a["mask"], a["width"],
+                     a["height"], a["acc"], a["numangle"], a["numrho"],
+                     a["trig"], a["threshold"], a["line_length"],
+                     a["line_gap"], a["lines"], a["list"], a["stats"])
     return a["lines"], a["stats"]
 
 

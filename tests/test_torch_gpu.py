@@ -16,6 +16,10 @@ only the port is installed:
   edge may move to the neighbouring cell; the bounds are those of the CPU
   comparison with the JAX package (tests/test_torch_georegrid.py).
 * The wrapper refuses what the kernel does not take.
+* The kernel boundary (``_kernels.CudaKernel``) at each of the eight call
+  sites, the launchers stubbed: the pointers are the site's tensors and
+  the last argument is ``current_stream(device)``, inside and outside
+  ``torch.cuda.stream(s)``, with the tensors' device current.
 * GEOREF_CELLS (``ops/csrc/georef_cells.cu``) against its plain twin, the
   eager chain, on the same CUDA calibration: iy, ix, lat, lon and
   elevation bit-equal (NaN where NaN) on the small frame (unmasked,
@@ -106,6 +110,7 @@ only the port is installed:
   (within 1e-9).
 """
 
+import contextlib
 import os
 
 import numpy as np
@@ -236,6 +241,96 @@ def test_k1_wrapper_refuses_bad_input(cuda, frame):
         bin_rgbelev_from_indices(GRID, iy, ix, img.cpu(), elev)
     with pytest.raises(ValueError):
         bin_rgbelev_from_indices(GRID, iy, ix, img.half(), elev)
+
+
+@pytest.mark.gpu
+def test_every_call_site_launches_its_tensors_on_their_stream(cuda,
+                                                              monkeypatch):
+    from auromat_tpu_torch.ops import georegrid as gr
+    from auromat_tpu_torch.solving import masking
+
+    calls = []
+    for k in (_kernels.K1_MEAN, _kernels.GEOREGRID_BIN, _kernels.GEOREF_CELLS,
+              _kernels.REGRID_BIN, _kernels.CCL8, _kernels.CONTOUR_TRACE,
+              _kernels.HOUGH_ORDER, _kernels.HOUGH_P):
+        monkeypatch.setattr(k, "_fn", lambda *a, k=k: calls.append(
+            (k, a, torch.cuda.current_device())) or 0)
+    dyn, h, w = small_dyn(cuda)
+    n = GRID.n_lat * GRID.n_lon
+    new = lambda dtype, *shape: torch.zeros(shape, dtype=dtype, device=cuda)
+    i32, i64, f32 = torch.int32, torch.int64, torch.float32
+    iy, ix, elev, lat, lon = (new(i32, h, w), new(i32, h, w), new(f32, h, w),
+                              new(f32, h, w), new(f32, h, w))
+    img, data = new(f32, 3, h, w), new(f32, h, w, 4)
+    mask = new(torch.bool, h, w)
+    acc, elev_acc, status = new(i64, n, 4), new(i64, n), new(i64, 1)
+    binary, roots, cycles = new(torch.uint8, h, w), new(i32, 2), new(i64, 2)
+    hough = {"pts": new(i32, 4, 2), "count": 4, "mask": binary, "width": w,
+             "height": h, "acc": new(i32, 180 * 20), "numangle": 180,
+             "numrho": 20, "trig": new(f32, 360), "threshold": 5,
+             "line_length": 3, "line_gap": 2, "lines": new(i32, 4, 4),
+             "list": new(i32, 2 * (w + h) + 2), "stats": new(i64, 4)}
+
+    def k1_mean():
+        count, means, most = gr.mean_int_sums(GRID, acc, elev_acc)
+        return _kernels.K1_MEAN, {0: acc, 1: elev_acc, 4: count, 5: means,
+                                  6: most}
+
+    def k1():
+        gr.launch_k1(GRID, iy, ix, img, elev, acc, elev_acc, status)
+        return _kernels.GEOREGRID_BIN, {0: iy, 1: ix, 2: img, 3: elev, 8: acc,
+                                        9: elev_acc, 10: status, 11: None,
+                                        12: None}
+
+    def georef_cells():
+        gr.georef_cells(GRID, dyn, iy, ix, elev, mask, 0, lat, lon)
+        fields = {i: getattr(dyn, name)
+                  for i, name in enumerate(gr._CELLS_DYN)}
+        return _kernels.GEOREF_CELLS, {**fields, 7: mask, -6: iy, -5: ix,
+                                       -4: elev, -3: lat, -2: lon}
+
+    def k2():
+        count, sums = new(f32, n), new(f32, n, 4)
+        rp.launch_k2(GRID, iy, ix, data, "uint8", new(i64, n, 5), status,
+                     count, sums)
+        return _kernels.REGRID_BIN, {0: iy, 1: ix, 2: data, 11: status,
+                                     12: count, 13: sums}
+
+    def ccl():
+        return _kernels.CCL8, {0: binary, 4: masking.ccl(binary, 8)}
+
+    def contour_trace():
+        b = masking._contour_trace_cuda(binary, roots, cycles=cycles)
+        return _kernels.CONTOUR_TRACE, {0: binary, 3: roots, 5: b.area2,
+                                        6: b.box, 7: b.length, 8: b.count,
+                                        9: None, 10: None, 11: cycles}
+
+    def hough_order():
+        return _kernels.HOUGH_ORDER, {1: masking._hough_order_cuda(16, cuda)}
+
+    def hough_p():
+        masking._hough_p_launch(hough)
+        return _kernels.HOUGH_P, {i: hough[key] for i, key in (
+            (0, "pts"), (2, "mask"), (5, "acc"), (8, "trig"), (12, "lines"),
+            (13, "list"), (14, "stats"))}
+
+    side = torch.cuda.Stream(cuda)
+    for on_side in (False, True):
+        for site in (k1_mean, k1, georef_cells, k2, ccl, contour_trace,
+                     hough_order, hough_p):
+            calls.clear()
+            ctx = torch.cuda.stream(side) if on_side else \
+                contextlib.nullcontext()
+            with ctx:
+                kernel, want = site()
+                stream = torch.cuda.current_stream(cuda).cuda_stream
+            assert (stream == side.cuda_stream) == on_side
+            assert [c[0] for c in calls] == [kernel], site.__name__
+            _, args, device = calls[0]
+            assert args[-1] == stream and device == iy.get_device()
+            for i, t in want.items():
+                assert args[i] == (None if t is None else t.data_ptr()), \
+                    (site.__name__, i)
 
 
 @pytest.fixture(scope="module")
@@ -1339,15 +1434,16 @@ def test_spans_on_the_card_time_the_stream_and_count_the_copies(cuda):
     got = rec.spans()
     names = [s.name for s in got]
     # the fused frame's cells come from GEOREF_CELLS, launched inside
-    # georegrid.georef; the library's from the eager bin_indices
+    # georegrid.georef; the library's from the eager bin_indices, inside
+    # georegrid
     assert names == [
         "georegrid", "georegrid.georef", "k1.wait",
         "create_mapping", "create_mapping.to_host", "create_mapping.masks",
         "resample", "resample.grid", "resample.prepare", "resample.to_device",
-        "resample.bin", "georegrid", "georegrid.bin_indices", "k1.wait",
+        "resample.bin", "georegrid", "k1.wait",
         "resample.to_host", "resample.finish"]
     for s in got:
-        if s.name in ("georegrid.georef", "georegrid.bin_indices"):
+        if s.name == "georegrid.georef":
             assert 0 < s.device_ms < 1000.0
         else:
             assert s.device_ms is None

@@ -11,10 +11,20 @@
   valid samples), from crafted inputs.
 * K1's status word (the count of a cell past MAX_CELL_COUNT) raises the
   plain version's error.
+* The kernel boundary, ``CudaKernel.__call__``, with the launcher stubbed:
+  tensors become their pointers in order, None a null pointer, numbers
+  pass as they are; the stream comes last; a CPU tensor and a
+  non-contiguous one are refused before the launcher runs; ``launches``
+  counts only a launch that returned 0; the tensors' device is made
+  current only when it is not. CPU tensors stand in for CUDA ones on
+  device -1 where the case needs a card (the ``gpu`` tests launch through
+  every call site on one).
 """
 
+import contextlib
 import os
 import shutil
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -170,3 +180,64 @@ def test_k1_status_raises_the_plain_error(most):
         refuse_cell_count(most)
     assert str(got.value) == str(want.value)
     assert str(most) in str(got.value)
+
+
+BOUNDARY_CASES = ["pointers", "launch", "device_switch", "refused_launch",
+                  "cpu_tensor", "non_contiguous"]
+
+
+@pytest.mark.parametrize("case", BOUNDARY_CASES)
+def test_the_kernel_boundary(monkeypatch, case):
+    k = _kernels.CudaKernel("ccl.cu", "ccl8_launch", [])
+    calls = []
+    rc = 5 if case == "refused_launch" else 0
+    k._fn = lambda *args: calls.append((args, torch.cuda.current_device())) \
+        or rc
+    a, b = torch.arange(6, dtype=torch.int32), torch.zeros(2, 3)
+    args = (a, None, 3, 2.5, b)
+    ptrs = [a.data_ptr(), None, 3, 2.5, b.data_ptr()]
+    if case == "pointers":
+        got, lead = k._c_args(args)
+        assert got == ptrs and lead is a
+        got, lead = k._c_args((7, b))
+        assert got == [7, b.data_ptr()] and lead is b
+        assert k._c_args((7, None)) == ([7, None], None)
+        return
+    if case == "cpu_tensor":
+        with pytest.raises(ValueError, match="ccl8_launch: argument 0 is on "
+                                             "cpu, not on a CUDA device"):
+            k(*args)
+        assert not calls and k.launches == 0
+        return
+    # a card: device -1 (a CPU tensor's get_device()), its stream 999
+    current = [2 if case == "device_switch" else -1]
+    switched = []
+
+    @contextlib.contextmanager
+    def device(d):
+        switched.append(d)
+        current[0], before = d, current[0]
+        yield
+        current[0] = before
+
+    monkeypatch.setattr(torch.Tensor, "is_cuda", True)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: current[0])
+    monkeypatch.setattr(torch.cuda, "device", device)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda d: SimpleNamespace(cuda_stream=1000 + d))
+    if case == "non_contiguous":
+        with pytest.raises(ValueError, match="ccl8_launch: argument 4 must "
+                                             "be contiguous"):
+            k(a, None, 3, 2.5, b.t())
+        assert not calls and k.launches == 0
+        return
+    if case == "refused_launch":
+        with pytest.raises(RuntimeError, match="ccl8_launch launch failed: "
+                                               "CUDA error 5"):
+            k(*args)
+    else:
+        k(*args)
+    assert calls == [(tuple(ptrs) + (999,), -1)]
+    assert k.launches == (0 if case == "refused_launch" else 1)
+    assert switched == ([-1] if case == "device_switch" else [])
+    assert current == [2 if case == "device_switch" else -1]

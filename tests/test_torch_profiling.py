@@ -283,18 +283,16 @@ def _library():
 # (name, parent's name): on the CPU no K1 status word is read (no k1.wait)
 # and no byte crosses between host and device
 PATH_SPANS = {
-    "fused": (_fused, [("georegrid", None), ("georegrid.georef", "georegrid"),
-                       ("georegrid.bin_indices", "georegrid")]),
-    "mosaic": (_mosaic, [("mosaic", None)]
-               + [("georegrid.georef", "mosaic"), ("georegrid.bin_indices", "mosaic")] * 2
+    "fused": (_fused, [("georegrid", None), ("georegrid.georef", "georegrid")]),
+    "mosaic": (_mosaic, [("mosaic", None)] + [("georegrid.georef", "mosaic")] * 2
                + [("mosaic.finish", "mosaic"), ("mosaic.finish.wait", "mosaic.finish")]),
     "library": (_library, [
         ("create_mapping", None), ("create_mapping.to_host", "create_mapping"),
         ("create_mapping.masks", "create_mapping"), ("resample", None),
         ("resample.grid", "resample"), ("resample.prepare", "resample"),
         ("resample.to_device", "resample"), ("resample.bin", "resample"),
-        ("georegrid", "resample.bin"), ("georegrid.bin_indices", "georegrid"),
-        ("resample.to_host", "resample"), ("resample.finish", "resample")]),
+        ("georegrid", "resample.bin"), ("resample.to_host", "resample"),
+        ("resample.finish", "resample")]),
 }
 
 
